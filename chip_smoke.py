@@ -5,16 +5,28 @@
 
 Phases, each printing one JSON line of its own numbers:
 
-  build      compile every CUDA kernel of the main path from csrc/
+  build      compile every CUDA kernel from csrc/, one nvcc per source, all
+             at once
   kernel     each kernel against its plain PyTorch version on the card, at
-             the main path's full shape and at a ragged one; times, bound
+             the main path's full shape and at a ragged one; times, bound.
+             The df64 passes also at the shape the JAX package profiled
+             them at (75,006 x 3840), and at every shape against the f64
+             cuBLAS product of the unsplit B
+  apply      one preconditioner apply at the main factor shape: the f64
+             split apply against the df64 apply with 3 and 2 components
   reference  a small training on the card against the same training on the
-             CPU (the CPU port is held to the JAX package by the tests)
+             CPU (the CPU port is held to the JAX package by the tests),
+             with the f64 apply and with apply_impl="df64"
   train      calibrated ethanol, n = 31,482 (N_train = 1166, P = 6, sig = 10),
              lev_random Nystrom-PCG with k = 1536 to tol 1e-4, f64
   predict    Predictor(fast=True) through the fused kernel on the 60
              held-out and the 1166 training geometries, against the f64
              Predictor
+  train_df64           the train phase with apply_impl="df64" (3 components):
+                       every PCG iteration's preconditioner apply runs the
+                       two df64 GEMV kernels
+  train_colblock_df64  the same with nystrom_block_cols=512 (3 column
+                       blocks, 2 components)
 
 Then the kernel table as one JSON line, the card's name and power limit as
 nvidia-smi reports them, and as the last line
@@ -34,6 +46,7 @@ import numpy as np
 
 # NVIDIA H100 SXM data sheet, dense rates at the 700 W limit
 F64_PEAK = 67e12    # FP64 on the tensor cores, FLOP/s (the card's top f64 rate)
+F32_PEAK = 67e12    # FP32 on the CUDA cores, FLOP/s
 MEM_RATE = 3.35e12  # HBM3, bytes/s
 
 N_TRAIN, N_SAMPLES, SIG, K_COLUMNS = 1166, 1226, 10.0, 1536
@@ -42,6 +55,17 @@ MAX_ITERS = 400
 # the kernel vs its plain version and the fast Predictor vs the f64 one: the
 # tolerances of the TPU kernel's own tests (tests/test_pallas_predict.py)
 ATOL_REL, RTOL = 2e-5, 2e-4
+# the df64 passes: (label, n, m), and their tolerance relative to max |ref|
+# (tests/test_df64.py).  "profiled" is the shape of the JAX package's
+# tools/profile_df64_kernels.py; its plain version is timed, not compared.
+DF64_SHAPES = (("main", 31482, K_COLUMNS), ("ragged", 1001, 130),
+               ("profiled", 75006, 3840))
+DF64_RTOL = 3e-12
+COLBLOCK_COLS = 512     # 3 column blocks of the k = 1536 factor
+# a df64 model and the f64 model of the same task, both converged to the
+# same tolerance, predict held-out forces of the same quality: their force
+# MAEs agree within 10%, which still catches a broken solve
+MAE_RATIO_LIMIT = 0.1
 
 
 def emit(phase: str, **fields) -> None:
@@ -103,6 +127,85 @@ def weights(dist, sig):
     return a, a * (1.0 + dist)
 
 
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def df64_kernel_rows(torch) -> dict:
+    """Both df64 passes at every shape of DF64_SHAPES on a random f64 B
+    (seeded, made on the card): against the plain version (main, ragged)
+    and the f64 cuBLAS product (all), timed at main and profiled.
+    Returns {(name, label): row}."""
+    from mlff_tpu_torch.ops import df64
+    from mlff_tpu_torch.ops import df64_gemv as dg
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = {}
+    for label, n, m in DF64_SHAPES:
+        B64 = torch.randn((n, m), generator=gen, dtype=torch.float64,
+                          device="cuda") / n**0.5
+        Bh, Bl = df64.split_f64(B64)
+        library = {"df64_bt_v": lambda v: B64.T @ v,    # one cuBLAS DGEMV
+                   "df64_b_x": lambda x: B64 @ x}
+        for name, length in (("df64_bt_v", n), ("df64_b_x", m)):
+            vec = torch.randn(length, generator=gen, dtype=torch.float64,
+                              device="cuda")
+            kernel = getattr(dg, name)
+            plain = getattr(dg, name + "_ref")
+            got = kernel(Bh, Bl, vec)
+            row = {"shape": label, "n": n, "m": m,
+                   "rel_err_vs_f64": rel_err(got, library[name](vec))}
+            ok = row["rel_err_vs_f64"] <= DF64_RTOL
+            if label != "profiled":
+                ref = plain(Bh, Bl, vec)
+                row["max_abs_err"] = float((got - ref).abs().max())
+                row["rel_err_vs_plain"] = rel_err(got, ref)
+                ok = ok and row["rel_err_vs_plain"] <= DF64_RTOL
+                del ref
+            if label != "ragged":
+                row["ms"] = time_ms(torch, lambda: kernel(Bh, Bl, vec))
+                row["plain_ms"] = time_ms(torch, lambda: plain(Bh, Bl, vec),
+                                          reps=5)
+                row["library_ms"] = time_ms(torch,
+                                            lambda: library[name](vec))
+                bound_s, bound_by = dg.bound_seconds(n, m, F32_PEAK, MEM_RATE)
+                row["bound_ms"] = bound_s * 1e3
+                row["bound_by"] = bound_by
+            row["ok"] = bool(ok and torch.isfinite(got).all())
+            emit("kernel", name=name, **row)
+            if not row["ok"]:
+                fail(f"{name} disagrees with its plain version or the f64 "
+                     f"product ({label})")
+            rows[(name, label)] = row
+        if label == "main":
+            apply_times(torch, B64)
+        del B64, Bh, Bl
+        torch.cuda.empty_cache()
+    return rows
+
+
+def apply_times(torch, B64) -> None:
+    """Device ms of one preconditioner apply on the factor B64 with a
+    random upper-triangular W2: the f64 split apply (cuBLAS) and the df64
+    apply with 3 and with 2 components (the kernels plus the f32 GEMVs of
+    the third component)."""
+    from mlff_tpu_torch.solvers import preconditioners as pc
+
+    n, m = B64.shape
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    W2 = torch.triu(torch.randn((m, m), generator=gen, dtype=torch.float64,
+                                device="cuda")) / m
+    v = torch.randn(n, generator=gen, dtype=torch.float64, device="cuda")
+    P = pc.WoodburySplitPreconditioner(B=B64, W2=W2, lam=1e-10, info={})
+    times = {"xla_ms": time_ms(torch, lambda: P(v))}
+    for comps in (3, 2):
+        Bh, Bl, Bm = pc._split_pad_b(B64, n, m, comps)
+        P = pc.DF64WoodburyPreconditioner(Bh=Bh, Bl=Bl, W2=W2, lam=1e-10,
+                                          Bm=Bm)
+        times[f"df64_{comps}_components_ms"] = time_ms(torch, lambda: P(v))
+    emit("apply", n=n, m=m, **times)
+
+
 def main() -> None:
     import torch
 
@@ -119,18 +222,20 @@ def main() -> None:
     from mlff_tpu_torch.models.predict import Predictor
     from mlff_tpu_torch.models.task import create_task
     from mlff_tpu_torch.ops import cuda_build
+    from mlff_tpu_torch.ops import df64_gemv as dg
     from mlff_tpu_torch.ops import fused_predict as fp
     from mlff_tpu_torch.ops import kernel as knl
 
     dev = resolve_device("cuda")
 
     # -- build -------------------------------------------------------------
+    sources = ["fused_predict", "df64_gemv"]
     t0 = time.perf_counter()
-    reports = cuda_build.build(["fused_predict"])
+    reports = cuda_build.build(sources)
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for r in reports.values() for ln in r.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", seconds=build_s, kernels=["fused_predict"], ptxas=ptxas)
+             if "registers" in ln or "spill" in ln or "Compiling" in ln]
+    emit("build", seconds=build_s, kernels=sources, ptxas=ptxas)
 
     # -- kernel ------------------------------------------------------------
     ds, perms = make_benchmark_dataset("ethanol", n_samples=N_SAMPLES,
@@ -175,6 +280,7 @@ def main() -> None:
         if not row["ok"]:
             fail(f"fused_predict disagrees with its plain version ({label})")
     del cache, w, wt, Xqt
+    df64_rows = df64_kernel_rows(torch)
 
     # -- reference: the card against the CPU on a small training ------------
     small = make_dataset("ethanol", n_samples=40, seed=3)
@@ -182,18 +288,21 @@ def main() -> None:
     stask = create_task(small, 30, small, n_valid=5, sig=SIG, solver="cg",
                         perms=benchmark_perms("ethanol"))
     held_s = np.setdiff1d(np.arange(40), stask["idxs_train"])
-    preds = {}
-    for d in ("cuda", "cpu"):
-        m = Trainer(device=d).train(stask, n_columns=200,
-                                    str_preconditioner="lev_random")
-        preds[d] = (m["solver_iters"],) + Predictor(m, device=d).predict(
-            small["R"][held_s])
-    scale = np.abs(preds["cpu"][2]).max()
-    err = float(np.abs(preds["cuda"][2] - preds["cpu"][2]).max() / scale)
-    emit("reference", iters_cuda=preds["cuda"][0], iters_cpu=preds["cpu"][0],
-         rel_err_F=err)
-    if abs(preds["cuda"][0] - preds["cpu"][0]) > 2 or not err <= 1e-4:
-        fail("the small training on the card disagrees with the CPU port")
+    for apply_impl in ("xla", "df64"):
+        preds = {}
+        for d in ("cuda", "cpu"):
+            m = Trainer(device=d).train(dict(stask, apply_impl=apply_impl),
+                                        n_columns=200,
+                                        str_preconditioner="lev_random")
+            preds[d] = (m["solver_iters"],) + Predictor(m, device=d).predict(
+                small["R"][held_s])
+        scale = np.abs(preds["cpu"][2]).max()
+        err = float(np.abs(preds["cuda"][2] - preds["cpu"][2]).max() / scale)
+        emit("reference", apply_impl=apply_impl, iters_cuda=preds["cuda"][0],
+             iters_cpu=preds["cpu"][0], rel_err_F=err)
+        if abs(preds["cuda"][0] - preds["cpu"][0]) > 2 or not err <= 1e-4:
+            fail(f"the small training on the card disagrees with the CPU "
+                 f"port (apply_impl={apply_impl})")
 
     # -- train: the main path ----------------------------------------------
     fp.desc_forces_fused.launches = 0
@@ -256,15 +365,71 @@ def main() -> None:
     if not (okF and okE and shapes_ok and finite):
         fail("Predictor(fast=True) disagrees with the f64 Predictor")
 
+    # -- train_df64, train_colblock_df64: the df64 apply path ---------------
+    mae_xla = float(np.abs(F_h64 - ds["F"][held]).mean())
+    df64_launches = {}
+    for phase, extra, components in (
+            ("train_df64", {}, 3),
+            ("train_colblock_df64", {"nystrom_block_cols": COLBLOCK_COLS}, 2)):
+        dg.df64_bt_v.launches = 0
+        dg.df64_b_x.launches = 0
+        t0 = time.perf_counter()
+        m_df = tr.train(dict(task, apply_impl="df64", **extra),
+                        n_columns=K_COLUMNS, str_preconditioner="lev_random")
+        train_s = time.perf_counter() - t0
+        launches_df = {"df64_bt_v": dg.df64_bt_v.launches,
+                       "df64_b_x": dg.df64_b_x.launches}
+        info = tr.last_info
+        iters = int(m_df["solver_iters"])
+        _, F_df = Predictor(m_df, device=dev).predict(ds["R"][held])
+        mae = float(np.abs(F_df - ds["F"][held]).mean())
+        emit(phase, n=n, k=K_COLUMNS, components=info["nystrom"]["components"],
+             n_blocks=info["nystrom"].get("n_blocks", 1),
+             converged=bool(m_df["is_conv"]), iters=iters,
+             xla_iters=int(model["solver_iters"]),
+             cg_s=info["total_time_cg"],
+             ms_per_iter=info["total_time_cg"] * 1e3 / max(iters, 1),
+             preconditioner_s=info["total_time_preconditioner"],
+             train_s=train_s, launches=launches_df,
+             gram_guard_fired=info["nystrom"]["gram_guard_fired"],
+             gram_probe_err=info["nystrom"]["gram_probe_err"],
+             force_mae_held_out=mae, force_mae_held_out_xla=mae_xla)
+        if info["nystrom"]["components"] != components:
+            fail(f"{phase} built {info['nystrom']['components']} components, "
+                 f"not {components}")
+        if not m_df["is_conv"] or iters > MAX_ITERS:
+            fail(f"{phase}: converged={m_df['is_conv']} in {iters} PCG "
+                 f"iterations (limit {MAX_ITERS})")
+        if min(launches_df.values()) == 0:
+            fail(f"{phase} did not launch both df64 kernels: {launches_df}")
+        if not (np.all(np.isfinite(F_df))
+                and abs(mae / mae_xla - 1.0) <= MAE_RATIO_LIMIT):
+            fail(f"{phase}: held-out force MAE {mae} against {mae_xla} of the "
+                 "f64 model")
+        df64_launches[phase] = launches_df
+
     full = rows[0]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "fused_predict", "route": "cuda",
         "source": "mlff_tpu_torch/csrc/fused_predict.cu",
         "replaces": "mlff_tpu/ops/pallas_predict.py:52",
         "launches": launches, "max_abs_err": full["max_abs_err_F"],
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}]
+    for name, line in (("df64_bt_v", 41), ("df64_b_x", 118)):
+        main_row = df64_rows[(name, "main")]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mlff_tpu_torch/csrc/df64_gemv.cu",
+            "replaces": f"mlff_tpu/ops/pallas_df64.py:{line}",
+            "launches": df64_launches["train_df64"][name],
+            "max_abs_err": main_row["max_abs_err"],
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)

@@ -1,10 +1,12 @@
 """Carry state between the JAX package and the port as NumPy arrays.
 
 ``kernel_cache_from_numpy`` builds the port's ``KernelCache`` from the fields
-of a JAX ``KernelCache`` (each leaf as a NumPy array), and
-``model_from_numpy`` validates a model dict that the JAX package wrote
-(an npz path or an in-memory dict) and returns it as the port's model.
-Neither imports the JAX package: the exchange format is NumPy.
+of a JAX ``KernelCache`` (each leaf as a NumPy array), ``model_from_numpy``
+validates a model dict that the JAX package wrote (an npz path or an
+in-memory dict) and returns it as the port's model, and the
+``*_preconditioner_from_numpy`` functions rebuild a preconditioner from the
+factors a JAX preconditioner holds.  None imports the JAX package: the
+exchange format is NumPy.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from . import resolve_device
 from .ops.kernel import KernelCache
+from .solvers import preconditioners as pc
 from .utils import io
 
 _CACHE_FIELDS = ("X", "Jc", "S", "P_idx", "Xq", "Xqt", "A_exp", "A_exp1",
@@ -46,6 +49,41 @@ def kernel_cache_from_numpy(fields: dict, device=None) -> KernelCache:
         Xq=f64("Xq"), Xqt=f64("Xqt"), A_exp=f64("A_exp"),
         A_exp1=f64("A_exp1"), sig=float(fields["sig"]),
         lam=float(fields["lam"]))
+
+
+def _tensor(a, dtype, dev) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, dtype=dtype), device=dev)
+
+
+def split_preconditioner_from_numpy(B, W2, lam, device=None
+                                    ) -> pc.WoodburySplitPreconditioner:
+    """Port split Woodbury preconditioner from the f64 factors (B, W2)."""
+    dev = resolve_device(device)
+    return pc.WoodburySplitPreconditioner(
+        B=_tensor(B, np.float64, dev), W2=_tensor(W2, np.float64, dev),
+        lam=float(lam), info={})
+
+
+def df64_preconditioner_from_numpy(Bh, Bl, W2, lam, Bm=None, device=None
+                                   ) -> pc.DF64WoodburyPreconditioner:
+    """Port df64 preconditioner from the f32 words of B (hi, lo and the
+    optional third component) and W2, as a JAX ``DF64WoodburyPreconditioner``
+    holds them (its tile padding included)."""
+    dev = resolve_device(device)
+    return pc.DF64WoodburyPreconditioner(
+        Bh=_tensor(Bh, np.float32, dev), Bl=_tensor(Bl, np.float32, dev),
+        W2=_tensor(W2, np.float64, dev), lam=float(lam),
+        Bm=None if Bm is None else _tensor(Bm, np.float32, dev),
+        info={"apply_impl": "df64", "components": 2 if Bm is None else 3})
+
+
+def colblock_preconditioner_from_numpy(Bs, W2, lam, device=None
+                                       ) -> pc.WoodburyColBlockPreconditioner:
+    """Port column-blocked preconditioner from the f64 blocks and W2."""
+    dev = resolve_device(device)
+    return pc.WoodburyColBlockPreconditioner(
+        Bs=tuple(_tensor(B, np.float64, dev) for B in Bs),
+        W2=_tensor(W2, np.float64, dev), lam=float(lam), info={})
 
 
 def model_from_numpy(model) -> dict:

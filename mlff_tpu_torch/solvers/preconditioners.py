@@ -10,16 +10,21 @@ PyTorch port of the main slice of ``mlff_tpu.solvers.preconditioners``
   * the Woodbury apply through the SPLIT factors (B, W2), never a fused
     T = W2^T B^T: the fused product freezes its rounding noise, amplified by
     ||W2|| ~ lam^-1/2, into the operator and made P^-1 indefinite at n = 75k
-    (see ``mlff_tpu.solvers.preconditioners.WoodburySplitPreconditioner``).
+    (see ``mlff_tpu.solvers.preconditioners.WoodburySplitPreconditioner``),
+  * the column-blocked factor (``task["nystrom_block_cols"]``): B kept as
+    column blocks, whitened in place block by block,
+  * ``apply_impl="df64"``: B stored as f32 (hi, lo[, mid]) words and the two
+    (n, m) passes of every apply run through the hand-written CUDA kernels
+    of ``ops/df64_gemv.py``.
 
 All builders work in the PSD convention (K + lam*I).  Not in this module yet
-(each raises NotImplementedError naming its ROADMAP item): the column-blocked
-factor, the fused-Cholesky method, energy constraints, and the df64 / ozaki
-apply engines.
+(each raises NotImplementedError naming its ROADMAP item): the fused-Cholesky
+method, energy constraints, and the ozaki apply and factor-build engines.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 
@@ -27,11 +32,37 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from .. import resolve_device
+from ..ops import df64
+from ..ops import df64_gemv
 from ..ops import kernel as knl
 from ..ops.descriptor import DescriptorSpec
 from ..utils.log import get_logger
 
 log = get_logger(__name__)
+
+# rows per chunk of the column-blocked whitening (bounds its transients)
+_GEMM_ROW_CHUNK = 4096
+
+
+class _StageTimer:
+    """Labelled wall-clock stage durations on ``dev`` (synchronized)."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.stages: dict[str, float] = {}
+        self._last = time.perf_counter()
+
+    def mark(self, label: str) -> None:
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        now = time.perf_counter()
+        self.stages[label] = now - self._last
+        self._last = now
+
+    def report(self, what: str) -> None:
+        log.info("%s: %s", what,
+                 "  ".join(f"{k} {v:.2f}s" for k, v in self.stages.items()))
 
 
 @dataclass
@@ -76,9 +107,174 @@ def _pad_split(B: torch.Tensor, W2: torch.Tensor):
         return B, W2
     Bp = torch.zeros((B.shape[0], m_pad), dtype=B.dtype, device=B.device)
     Bp[:, :m] = B
+    return Bp, _pad_square(W2, m_pad)
+
+
+def _pad_square(W2: torch.Tensor, m_pad: int) -> torch.Tensor:
+    """W2 zero-padded to (m_pad, m_pad) (inert in the apply)."""
+    if W2.shape[0] == m_pad:
+        return W2
     Wp = torch.zeros((m_pad, m_pad), dtype=W2.dtype, device=W2.device)
-    Wp[:m, :m] = W2
-    return Bp, Wp
+    Wp[:W2.shape[0], :W2.shape[1]] = W2
+    return Wp
+
+
+@dataclass
+class WoodburyColBlockPreconditioner:
+    """Split Woodbury apply with B stored as column blocks (n, m_c):
+
+        u_c = B_c^T v,  x = W2 (W2^T concat(u)),  y = sum_c B_c x_c,
+        P^-1 v = lam^-1 (v - y)
+
+    the same operator as ``WoodburySplitPreconditioner`` with
+    B = concat(Bs, axis=1).  The last block is zero-column padded so that
+    the total width is a multiple of 128 (inert)."""
+
+    Bs: tuple          # of (n, m_c) f64 column blocks
+    W2: torch.Tensor   # (m, m)
+    lam: float
+    info: dict
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        return woodbury_colblock_apply(self, v)
+
+
+def _block_pass1(B: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """u = B^T v for one (n, m_c) block."""
+    return B.T @ v
+
+
+def _block_pass2(B: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y = B x for one (n, m_c) block."""
+    return B @ x
+
+
+def woodbury_colblock_apply(P: WoodburyColBlockPreconditioner,
+                            v: torch.Tensor) -> torch.Tensor:
+    """lam^-1 (v - B W2 W2^T B^T v) over the column blocks of B."""
+    u = torch.cat([_block_pass1(B, v) for B in P.Bs])
+    x = P.W2 @ (P.W2.T @ u)
+    y = torch.zeros_like(v)
+    off = 0
+    for B in P.Bs:
+        y = y + _block_pass2(B, x[off:off + B.shape[1]])
+        off += B.shape[1]
+    return (v - y) / P.lam
+
+
+@dataclass
+class DF64WoodburyPreconditioner:
+    """Split Woodbury apply with the two (n, m) passes through the df64 CUDA
+    kernels (``ops/df64_gemv.py``).
+
+    B is stored as an f32 (hi, lo) pair carrying 48 of f64's 53 mantissa
+    bits; each pass reads 8 bytes per element, as an f64 GEMV does, and
+    computes f64-class results in compensated f32 arithmetic.
+
+    ``Bm`` (optional third component, f32(B - Bh - Bl), ~2^-48 |B|): the
+    2^-48 quantization of the two-component form is frozen into the apply
+    operator, ~2^-48 ||W2||^2 ~ 1e-10/lam-grade, which the JAX package
+    measured as +10-15% CG iterations.  With the third component that
+    error is gone; its contribution rides two plain f32 GEMVs (TF32 off,
+    see ``df64_from_split``).  ``Bh.shape[0]`` may exceed the vectors'
+    length n (zero rows, inert): the apply pads v to it."""
+
+    Bh: torch.Tensor             # (n_rows, m) f32
+    Bl: torch.Tensor             # (n_rows, m) f32
+    W2: torch.Tensor             # (m, m) f64
+    lam: float
+    Bm: torch.Tensor | None = None   # (n_rows, m) f32
+    info: dict | None = None
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        return df64_woodbury_apply(self, v)
+
+
+def df64_woodbury_apply(P: DF64WoodburyPreconditioner,
+                        v: torch.Tensor) -> torch.Tensor:
+    """lam^-1 (v - B W2 W2^T B^T v) with the (n, m) passes in df64."""
+    n = v.shape[0]
+    n_rows = P.Bh.shape[0]
+    vp = v
+    if n_rows != n:
+        vp = torch.zeros(n_rows, dtype=v.dtype, device=v.device)
+        vp[:n] = v
+    u = df64_gemv.df64_bt_v(P.Bh, P.Bl, vp)            # (m,) f64
+    if P.Bm is not None:
+        # third-component correction: Bm ~ 2^-48 |B|, so a plain f32 GEMV
+        # carries it at ~2^-72 overall
+        u = u + (vp.to(torch.float32) @ P.Bm).to(torch.float64)
+    x = P.W2 @ (P.W2.T @ u)                             # small f64 GEMVs
+    y = df64_gemv.df64_b_x(P.Bh, P.Bl, x)              # (n_rows,) f64
+    if P.Bm is not None:
+        y = y + (P.Bm @ x.to(torch.float32)).to(torch.float64)
+    return (v - y[:n]) / P.lam
+
+
+def _split_pad_b(B: torch.Tensor, n_pad: int, m_pad: int,
+                 components: int = 3) -> tuple:
+    """f64 B (n, m) -> f32 (hi, lo, mid or None), zero-padded to
+    (n_pad, m_pad).  The split happens before any padding."""
+    n, m = B.shape
+    Bh, Bl = df64.split_f64(B)
+    Bm = None
+    if components >= 3:
+        # the residual below the two-component form (~2^-48 scale): f64's
+        # 53-bit mantissa leaves ~5 bits, which f32 carries exactly
+        Bm = (B - Bh.to(B.dtype) - Bl.to(B.dtype)).to(torch.float32)
+    out = []
+    for comp in (Bh, Bl, Bm):
+        if comp is not None and (n_pad, m_pad) != (n, m):
+            padded = torch.zeros((n_pad, m_pad), dtype=torch.float32,
+                                 device=B.device)
+            padded[:n, :m] = comp
+            comp = padded
+        out.append(comp)
+    return tuple(out)
+
+
+def df64_from_split(P: WoodburySplitPreconditioner, components: int = 3
+                    ) -> DF64WoodburyPreconditioner:
+    """The df64 form of a split preconditioner.  P is consumed: its f64 B
+    is dropped after the split (``P.B`` becomes None).  ``components=3``
+    keeps the third f32 slice of B (+50% factor memory, no frozen
+    quantization); 2 drops it.  Nothing is padded beyond P's own 128-column
+    padding.  On a CUDA device this switches TF32 off (``resolve_device``),
+    which the f32 third-component GEMVs rely on."""
+    if P.B.device.type == "cuda":
+        resolve_device(P.B.device)
+    n, m = P.B.shape
+    Bh, Bl, Bm = _split_pad_b(P.B, n, m, components)
+    P.B = None
+    info = dict(P.info, apply_impl="df64", components=3 if Bm is not None
+                else 2)
+    return DF64WoodburyPreconditioner(Bh=Bh, Bl=Bl, W2=P.W2, lam=P.lam, Bm=Bm,
+                                      info=info)
+
+
+def _split_block_f32(B: torch.Tensor):
+    """f64 column block -> (hi, lo) f32 pair."""
+    return df64.split_f64(B)
+
+
+def df64_from_colblocks(Bs, W2: torch.Tensor, lam: float,
+                        info: dict | None = None
+                        ) -> DF64WoodburyPreconditioner:
+    """Column-blocked f64 factor -> the monolithic 2-component df64 form:
+    each block is split into its (hi, lo) pair, then the pieces are
+    concatenated into (n, m) planes.  The JAX package keeps 2 components on
+    this route because the third would not fit its HBM budget at the sizes
+    that need column blocks; the port keeps the same operator."""
+    his, los = zip(*(_split_block_f32(B) for B in Bs))
+    Bh = torch.cat(his, dim=1)
+    Bl = torch.cat(los, dim=1)
+    del his, los
+    m = Bh.shape[1]
+    log.info("df64 colblock conversion: 2-component (n=%d, m=%d)",
+             Bh.shape[0], m)
+    return DF64WoodburyPreconditioner(
+        Bh=Bh, Bl=Bl, W2=_pad_square(W2, m), lam=float(lam), Bm=None,
+        info=dict(info or {}, apply_impl="df64", components=2))
 
 
 def _unpack_sym(packed: np.ndarray, m: int) -> np.ndarray:
@@ -163,25 +359,15 @@ def _nystrom_factor_split(
     """
     dev = K_nm.device
     m = len(inducing_idxs)
-    stages: dict[str, float] = {}
-    t = time.perf_counter()
-
-    def mark(label):
-        nonlocal t
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        stages[label] = now - t
-        t = now
-
+    t = _StageTimer(dev)
     K_mm = _host_sym(K_nm[torch.as_tensor(inducing_idxs, device=dev)])
-    mark("gather_Kmm")
+    t.mark("gather_Kmm")
     W1 = torch.as_tensor(_host_whiten_factor(K_mm, rank_tol, host_decomp),
                          dtype=torch.float64, device=dev)
-    mark("host_W1")
+    t.mark("host_W1")
     B = K_nm @ W1                                    # (n, m)
     inner_dev = B.T @ B                              # Gram of the stored B
-    mark("whiten_gram")
+    t.mark("whiten_gram")
     inner = _host_sym(inner_dev)
     # GUARD: inner must match B's true Gram to ~lam ABSOLUTE, or the
     # (w2 + lam)^-1/2 scaling silently stops preconditioning.  Probe the full
@@ -201,14 +387,13 @@ def _nystrom_factor_split(
             probe_err, lam, B.shape[0], m)
         B_host = B.cpu().numpy()
         inner = B_host.T @ B_host
-    mark("gram_probe")
+    t.mark("gram_probe")
     W2 = torch.as_tensor(_host_inner_isqrt(inner, lam, host_decomp),
                          dtype=torch.float64, device=dev)
-    mark("host_W2")
-    log.info("nystrom factor stages: %s",
-             "  ".join(f"{k} {v:.2f}s" for k, v in stages.items()))
+    t.mark("host_W2")
+    t.report("nystrom factor stages")
     info = {"gram_guard_fired": bool(fired), "gram_probe_err": probe_err,
-            "stages": stages}
+            "stages": t.stages}
     return B, W2, info
 
 
@@ -223,6 +408,119 @@ def _nystrom_factor_eigh(
     return (B @ W2).T
 
 
+def _whiten_colblock(K_c: torch.Tensor, K_prev, W1: torch.Tensor, off_c: int,
+                     offs_prev, chunk: int = _GEMM_ROW_CHUNK) -> torch.Tensor:
+    """B_c = sum_{j<=c} K_j W1[j-block, c-block], written over K_c row chunk
+    by row chunk (each chunk's product is formed before it overwrites the
+    chunk).  Correct because W1 is upper triangular (chol whitening,
+    L^-T): block c of B depends only on K blocks j <= c, so a descending-c
+    sweep may overwrite block c while blocks j < c still hold kernel
+    columns."""
+    mc = K_c.shape[1]
+    W_cc = W1[off_c:off_c + mc, off_c:off_c + mc]
+    W_jcs = [W1[oj:oj + Kj.shape[1], off_c:off_c + mc]
+             for Kj, oj in zip(K_prev, offs_prev)]
+    for s in range(0, K_c.shape[0], chunk):
+        rows = slice(s, s + chunk)
+        blk = K_c[rows] @ W_cc
+        for Kj, W_jc in zip(K_prev, W_jcs):
+            blk += Kj[rows] @ W_jc
+        K_c[rows] = blk
+    return K_c
+
+
+def _gram_pair(Ba: torch.Tensor, Bb: torch.Tensor) -> torch.Tensor:
+    """Ba^T Bb (m_a, m_b): one f64 GEMM (true f64 at any depth on the card;
+    the JAX package caps the depth because TPU f64 emulation degrades past
+    1024)."""
+    return Ba.T @ Bb
+
+
+def _nystrom_factor_split_colblocked(
+    spec: DescriptorSpec,
+    cache: knl.KernelCache,
+    inducing_idxs: np.ndarray,
+    lam: float,
+    rank_tol: float,
+    block_cols: int,
+) -> tuple[tuple, torch.Tensor, dict]:
+    """Column-blocked variant of ``_nystrom_factor_split``: K_nm is
+    assembled, whitened in place and kept as column blocks of <= block_cols,
+    never one (n, m) buffer.  Same math and the same self-consistency
+    discipline (the inner matrix is the Gram of the stored blocks, guarded
+    by a probe of every diagonal entry with a plain f64 column dot).  Only
+    'chol' whitening: the in-place sweep needs W1 upper triangular.
+    Returns (blocks, W2, info)."""
+    inducing_idxs = np.sort(np.asarray(inducing_idxs))
+    m = len(inducing_idxs)
+    dev = cache.device
+    offs = list(range(0, m, block_cols))
+    t = _StageTimer(dev)
+    blocks = [knl.assemble_columns(spec, cache,
+                                   inducing_idxs[off:off + block_cols])
+              for off in offs]
+    t.mark("assemble")
+    idxs_dev = torch.as_tensor(inducing_idxs, device=dev)
+    K_mm = np.concatenate([K_c[idxs_dev].cpu().numpy() for K_c in blocks],
+                          axis=1)
+    t.mark("gather_Kmm")
+    W1 = torch.as_tensor(_host_whiten_factor(K_mm, rank_tol, "chol"),
+                         dtype=torch.float64, device=dev)
+    t.mark("host_W1")
+    for c in reversed(range(len(blocks))):
+        blocks[c] = _whiten_colblock(blocks[c], blocks[:c], W1, offs[c],
+                                     offs[:c])
+    t.mark("whiten")
+    inner = np.zeros((m, m))
+    for a in range(len(blocks)):
+        for b in range(a, len(blocks)):
+            G = _gram_pair(blocks[a], blocks[b]).cpu().numpy()
+            inner[offs[a]:offs[a] + G.shape[0],
+                  offs[b]:offs[b] + G.shape[1]] = G
+            if b != a:
+                inner[offs[b]:offs[b] + G.shape[1],
+                      offs[a]:offs[a] + G.shape[0]] = G.T
+    t.mark("gram")
+    # GUARD (same contract as _nystrom_factor_split's): every diagonal entry
+    # of every block against an independent column dot
+    probe_err = 0.0
+    for a, B_a in enumerate(blocks):
+        exact = torch.sum(B_a * B_a, dim=0).cpu().numpy()
+        diag = np.diagonal(inner)[offs[a]:offs[a] + B_a.shape[1]]
+        probe_err = max(probe_err, float(np.abs(diag - exact).max()))
+    fired = probe_err > max(0.1 * lam, 1e-12)
+    if fired:
+        log.warning(
+            "colblock device Gram failed the spot check (max abs err %.2e vs "
+            "lam = %.0e): recomputing inner on host from the blocks",
+            probe_err, lam)
+        B_host = np.concatenate([B_c.cpu().numpy() for B_c in blocks], axis=1)
+        inner = B_host.T @ B_host
+    t.mark("gram_probe")
+    W2 = torch.as_tensor(_host_inner_isqrt(inner, lam, "chol"),
+                         dtype=torch.float64, device=dev)
+    t.mark("host_W2")
+    t.report("nystrom colblock factor stages")
+    info = {"gram_guard_fired": bool(fired), "gram_probe_err": probe_err,
+            "stages": t.stages, "block_cols": int(block_cols),
+            "n_blocks": len(blocks)}
+    return tuple(blocks), W2, info
+
+
+def _pad_colblocks(Bs: tuple, W2: torch.Tensor):
+    """Zero-column-pad the last block (and W2's rows and columns) so that
+    the total width is a multiple of 128 (inert in the apply)."""
+    m = sum(B.shape[1] for B in Bs)
+    m_pad = -(-m // 128) * 128
+    if m_pad == m:
+        return Bs, W2
+    last = Bs[-1]
+    lp = torch.zeros((last.shape[0], last.shape[1] + m_pad - m),
+                     dtype=last.dtype, device=last.device)
+    lp[:, :last.shape[1]] = last
+    return (*Bs[:-1], lp), _pad_square(W2, m_pad)
+
+
 def nystrom_preconditioner(
     spec: DescriptorSpec,
     cache: knl.KernelCache,
@@ -233,30 +531,46 @@ def nystrom_preconditioner(
     rank_tol: float = 1e-10,
     apply_impl: str = "xla",
     block_cols: int | None = None,
-) -> WoodburySplitPreconditioner:
+):
     """Nyström preconditioner P = K_nm K_mm^+ K_mn + lam I from a column
     subset, whitened form, applied through the Woodbury identity
     (reference iterative_solver.py:218-254, 370-374).
 
     ``method``: 'chol_host' (Cholesky + triangular inverse on host, the
     default) or 'eigh' (host eigendecompositions with clamping).
-    ``apply_impl``: 'xla' names the plain f64 apply, as in the JAX package.
+    ``apply_impl``: 'xla' names the plain f64 apply, as in the JAX package;
+    'df64' the apply through the df64 CUDA kernels, with 3 components
+    unless the JAX package's memory rule asks for 2.
+    ``block_cols``: keep B as column blocks of this width ('chol' whitening;
+    with 'df64' the blocks become one 2-component df64 factor).  The JAX
+    package also switches to blocks on its own above a TPU per-buffer
+    ceiling (ROADMAP module item 13); the port only when asked.
     """
     if use_E_cstr:
         raise NotImplementedError(
             "energy-constrained columns are ROADMAP module item 10")
-    if block_cols is not None:
-        raise NotImplementedError(
-            "the column-blocked Nystrom factor is ROADMAP module item 9")
     if method not in ("chol_host", "eigh"):
         raise NotImplementedError(
             f"nystrom method {method!r} is ROADMAP module item 9")
-    if apply_impl != "xla":
+    if apply_impl == "ozaki" or os.environ.get("MLFF_BUILD_GEMM") == "ozaki":
         raise NotImplementedError(
-            f"apply_impl {apply_impl!r}: the df64 / ozaki applies are ROADMAP "
-            "module item 11 and kernel queue items 2-3")
+            "the ozaki apply and factor-build engines are ROADMAP module "
+            "item 11")
+    if apply_impl not in ("xla", "df64"):
+        raise ValueError(f"unknown apply_impl {apply_impl!r}")
     inducing_idxs = np.sort(np.asarray(inducing_idxs))
     t0 = time.perf_counter()
+    if block_cols is not None:
+        Bs, W2, info = _nystrom_factor_split_colblocked(
+            spec, cache, inducing_idxs, lam, rank_tol, block_cols)
+        Bs, W2 = _pad_colblocks(Bs, W2)
+        info = dict(info, factorization_s=time.perf_counter() - t0)
+        log.info("nystrom build (colblock x%d): %.2fs", len(Bs),
+                 info["factorization_s"])
+        if apply_impl == "df64":
+            return df64_from_colblocks(Bs, W2, lam, info)
+        return WoodburyColBlockPreconditioner(
+            Bs=Bs, W2=W2, lam=float(lam), info=dict(info, apply_impl="xla"))
     K_nm = knl.assemble_columns(spec, cache, inducing_idxs)   # (n, m) PSD
     if cache.device.type == "cuda":
         torch.cuda.synchronize(cache.device)
@@ -270,7 +584,16 @@ def nystrom_preconditioner(
                 factorization_s=time.perf_counter() - t1)
     log.info("nystrom build (%s): columns %.2fs, factorization %.2fs",
              method, info["columns_s"], info["factorization_s"])
-    return WoodburySplitPreconditioner(B=B, W2=W2, lam=float(lam), info=info)
+    P = WoodburySplitPreconditioner(B=B, W2=W2, lam=float(lam),
+                                    info=dict(info, apply_impl="xla"))
+    del B
+    if apply_impl == "df64":
+        # the JAX package's rule, kept verbatim so that the same task builds
+        # the same operator: 3 components unless the conversion transient
+        # (f64 B + three f32 slices, ~20 bytes per element) passes 8 GB
+        comps = 3 if P.B.numel() * 20 < int(8e9) else 2
+        P = df64_from_split(P, components=comps)
+    return P
 
 
 def select_random(n: int, k: int, rng: np.random.Generator) -> np.ndarray:
