@@ -6,12 +6,16 @@
 Phases, each printing one JSON line of its own numbers:
 
   build      compile every CUDA kernel from csrc/, one nvcc per source, all
-             at once
+             at once; ptxas's registers and spills (a spill in a df64 kernel
+             fails the run)
   kernel     each kernel against its plain PyTorch version on the card, at
              the main path's full shape and at a ragged one; times, bound.
-             The df64 passes also at the shape the JAX package profiled
-             them at (75,006 x 3840), and at every shape against the f64
-             cuBLAS product of the unsplit B
+             The df64 passes also at a second ragged shape with several
+             slabs (4099 x 1030) and at the shape the JAX package profiled
+             them at (75,006 x 3840), at every shape against the f64 cuBLAS
+             product of the unsplit B; at the two large shapes kernel and
+             cuBLAS call are timed in turns (median, spread, vs_library,
+             share_of_bound); df64_bt_v twice for the same bits
   apply      one preconditioner apply at the main factor shape: the f64
              split apply against the df64 apply with 3 and 2 components
   reference  a small training on the card against the same training on the
@@ -59,7 +63,8 @@ ATOL_REL, RTOL = 2e-5, 2e-4
 # (tests/test_df64.py).  "profiled" is the shape of the JAX package's
 # tools/profile_df64_kernels.py; its plain version is timed, not compared.
 DF64_SHAPES = (("main", 31482, K_COLUMNS), ("ragged", 1001, 130),
-               ("profiled", 75006, 3840))
+               ("ragged_slabs", 4099, 1030), ("profiled", 75006, 3840))
+DF64_TIMED = ("main", "profiled")
 DF64_RTOL = 3e-12
 COLBLOCK_COLS = 512     # 3 column blocks of the k = 1536 factor
 # a df64 model and the f64 model of the same task, both converged to the
@@ -133,11 +138,13 @@ def rel_err(got, want) -> float:
 
 def df64_kernel_rows(torch) -> dict:
     """Both df64 passes at every shape of DF64_SHAPES on a random f64 B
-    (seeded, made on the card): against the plain version (main, ragged)
-    and the f64 cuBLAS product (all), timed at main and profiled.
-    Returns {(name, label): row}."""
+    (seeded, made on the card): against the plain version (all but
+    profiled) and the f64 cuBLAS product (all); at main and profiled the
+    kernel and the cuBLAS call are timed in turns.  Returns
+    {(name, label): row}."""
     from mlff_tpu_torch.ops import df64
     from mlff_tpu_torch.ops import df64_gemv as dg
+    from mlff_tpu_torch.utils.timing import time_in_turns
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = {}
@@ -162,20 +169,31 @@ def df64_kernel_rows(torch) -> dict:
                 row["rel_err_vs_plain"] = rel_err(got, ref)
                 ok = ok and row["rel_err_vs_plain"] <= DF64_RTOL
                 del ref
-            if label != "ragged":
-                row["ms"] = time_ms(torch, lambda: kernel(Bh, Bl, vec))
+            if label == "main" and name == "df64_bt_v":
+                row["same_bits_twice"] = bool(
+                    torch.equal(got, kernel(Bh, Bl, vec)))
+                ok = ok and row["same_bits_twice"]
+            if label in DF64_TIMED:
+                turns = time_in_turns(torch, {
+                    "library": lambda: library[name](vec),
+                    "kernel": lambda: kernel(Bh, Bl, vec)})
+                row["ms"], row["ms_spread"] = turns["kernel"]
+                row["library_ms"], row["library_ms_spread"] = turns["library"]
                 row["plain_ms"] = time_ms(torch, lambda: plain(Bh, Bl, vec),
                                           reps=5)
-                row["library_ms"] = time_ms(torch,
-                                            lambda: library[name](vec))
                 bound_s, bound_by = dg.bound_seconds(n, m, F32_PEAK, MEM_RATE)
                 row["bound_ms"] = bound_s * 1e3
                 row["bound_by"] = bound_by
+                row["vs_library"] = row["ms"] / row["library_ms"]
+                row["share_of_bound"] = row["bound_ms"] / row["ms"]
             row["ok"] = bool(ok and torch.isfinite(got).all())
             emit("kernel", name=name, **row)
             if not row["ok"]:
                 fail(f"{name} disagrees with its plain version or the f64 "
-                     f"product ({label})")
+                     f"product, or with itself ({label})")
+            if row.get("share_of_bound", 0.0) > 1.0:
+                fail(f"{name} ({label}) timed below its byte bound: "
+                     f"{row['ms']} ms against {row['bound_ms']} ms")
             rows[(name, label)] = row
         if label == "main":
             apply_times(torch, B64)
@@ -236,6 +254,11 @@ def main() -> None:
     ptxas = [ln.strip() for r in reports.values() for ln in r.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling" in ln]
     emit("build", seconds=build_s, kernels=sources, ptxas=ptxas)
+    spills = [ln.strip() for ln in reports.get("df64_gemv", "").splitlines()
+              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads"
+              not in ln]
+    if spills:
+        fail(f"ptxas reports spills in a df64 kernel: {spills}")
 
     # -- kernel ------------------------------------------------------------
     ds, perms = make_benchmark_dataset("ethanol", n_samples=N_SAMPLES,
@@ -428,7 +451,11 @@ def main() -> None:
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
-            "library_ms": main_row["library_ms"]})
+            "library_ms": main_row["library_ms"],
+            "ms_spread": main_row["ms_spread"],
+            "library_ms_spread": main_row["library_ms_spread"],
+            "vs_library": main_row["vs_library"],
+            "share_of_bound": main_row["share_of_bound"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -88,7 +88,8 @@ def test_fast_predictor_matches_f64_predictor(small):
         MODEL_RTOL * np.abs(E_x - model["c"]).max()
 
 
-@pytest.mark.parametrize("shape", [(700, 150), (1024, 512)])
+@pytest.mark.parametrize("shape", [(700, 150), (1024, 512), (4099, 1030),
+                                   (257, 4)])
 @pytest.mark.parametrize("kernel", ["bt_v", "b_x"])
 def test_df64_kernel_matches_plain_version_and_f64(small, kernel, shape):
     n, m = shape
@@ -111,6 +112,44 @@ def test_df64_kernel_matches_plain_version_and_f64(small, kernel, shape):
     assert wrapper.launches == before + 1
     assert _rel_err(got, ref) <= DF64_RTOL
     assert _rel_err(got, want) <= DF64_RTOL
+
+
+@pytest.mark.parametrize("kernel", ["bt_v", "b_x"])
+def test_df64_kernel_holds_its_error_where_the_sum_cancels(small, kernel):
+    """Columns (rows for b_x) of B that sum to ~0 against a vector of ones:
+    the result is ~1e-8 of the sum of magnitudes, and the error is held to
+    3e-12 of that sum, sum_i |b_i| |v_i|, as for any compensated dot."""
+    n, m = (4099, 1030) if kernel == "bt_v" else (1030, 4096)
+    rng = np.random.default_rng(7)
+    B = rng.standard_normal((n, m))
+    axis = 0 if kernel == "bt_v" else 1
+    B -= B.mean(axis=axis, keepdims=True)
+    B += 1e-8 * rng.standard_normal(B.shape)
+    B = torch.as_tensor(B, device="cuda")
+    Bh, Bl = df64.split_f64(B)
+    vec = torch.ones(B.shape[axis], dtype=torch.float64, device="cuda")
+    want = B.T @ vec if kernel == "bt_v" else B @ vec
+    scale = (B.abs().T @ vec if kernel == "bt_v" else B.abs() @ vec).max()
+    assert float(want.abs().max()) < 1e-5 * float(scale)
+    got = getattr(df64_gemv, f"df64_{kernel}")(Bh, Bl, vec)
+    ref = getattr(df64_gemv, f"df64_{kernel}_ref")(Bh, Bl, vec)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= DF64_RTOL * float(scale)
+    assert float((got - ref).abs().max()) <= DF64_RTOL * float(scale)
+
+
+@pytest.mark.parametrize("shape", [(31482, 1536), (4099, 1030)])
+def test_df64_bt_v_gives_the_same_bits_twice(small, shape):
+    """The slabs' partials are added in a fixed tree by whichever block
+    finishes last: the order of finishing must not show in the result."""
+    n, m = shape
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    B = torch.randn((n, m), generator=gen, dtype=torch.float64, device="cuda")
+    Bh, Bl = df64.split_f64(B)
+    v = torch.randn(n, generator=gen, dtype=torch.float64, device="cuda")
+    first = df64_gemv.df64_bt_v(Bh, Bl, v)
+    for _ in range(3):
+        assert torch.equal(df64_gemv.df64_bt_v(Bh, Bl, v), first)
 
 
 def test_df64_training_on_card_matches_cpu(small):
