@@ -6,10 +6,15 @@
 Phases, each printing one JSON line of its own numbers:
 
   build      compile every CUDA kernel from csrc/, one nvcc per source, all
-             at once; ptxas's registers and spills (a spill in a df64 kernel
+             at once; ptxas's registers and spills (a spill in any kernel
              fails the run)
   kernel     each kernel against its plain PyTorch version on the card, at
              the main path's full shape and at a ragged one; times, bound.
+             fused_predict also with queries that are training rows (zero
+             distances) and with one query, twice for the same bits, timed
+             in turns with its plain version (median, spread,
+             share_of_bound) and, at B = 1 and B = 60, per call on the
+             host's clock.
              The df64 passes also at a second ragged shape with several
              slabs (4099 x 1030) and at the shape the JAX package profiled
              them at (75,006 x 3840), at every shape against the f64 cuBLAS
@@ -66,6 +71,9 @@ DF64_SHAPES = (("main", 31482, K_COLUMNS), ("ragged", 1001, 130),
                ("ragged_slabs", 4099, 1030), ("profiled", 75006, 3840))
 DF64_TIMED = ("main", "profiled")
 DF64_RTOL = 3e-12
+# a fused_predict call keeps the host for tens of microseconds, at small B
+# longer than the card: its timed turns start behind a spin of this length
+FUSED_LEAD_MS = 2.0
 COLBLOCK_COLS = 512     # 3 column blocks of the k = 1536 factor
 # a df64 model and the f64 model of the same task, both converged to the
 # same tolerance, predict held-out forces of the same quality: their force
@@ -134,6 +142,61 @@ def weights(dist, sig):
 
 def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
+
+
+def fused_predict_rows(torch, Xq, Xqt, wt, Xq_held) -> dict:
+    """The fused kernel against its plain version on the main path's
+    operands: Xq (512 training descriptors as queries), Xqt and wt (the
+    permuted training set), Xq_held (the 60 held-out queries).  Returns
+    {label: row}; ``full`` carries the times."""
+    from mlff_tpu_torch.ops import fused_predict as fp
+    from mlff_tpu_torch.utils.timing import host_ms_per_call, time_in_turns
+
+    M, D = Xqt.shape
+    cases = {"full": (Xq, M), "ragged": (Xq[:7], M - 37),
+             "self": (Xqt[:512], M), "one": (Xq_held[:1], M),
+             "held_out": (Xq_held, M)}
+    rows = {}
+    for label, (queries, Mr) in cases.items():
+        args = (queries.contiguous(), Xqt[:Mr].contiguous(),
+                wt[:Mr].contiguous(), SIG)
+        B = args[0].shape[0]
+        F_k, E_k = fp.desc_forces_fused(*args)
+        F_2, E_2 = fp.desc_forces_fused(*args)
+        F_r, E_r = fp.desc_forces_fused_ref(*args)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(F_k, F_2) and torch.equal(E_k, E_2))
+        F_k, E_k, F_r, E_r = (t.cpu().numpy() for t in (F_k, E_k, F_r, E_r))
+        okF, errF = close(F_k, F_r, np.abs(F_r).max())
+        okE, errE = close(E_k, E_r, np.abs(E_r).max())
+        row = {"shape": label, "B": B, "M": Mr, "D": D,
+               "max_abs_err_F": errF, "max_abs_err_E": errE,
+               "max_abs_F": float(np.abs(F_r).max()),
+               "rel_err_F": errF / float(np.abs(F_r).max()),
+               "same_bits_twice": same, "ok": okF and okE and same}
+        if label in ("full", "one", "held_out"):
+            turns = time_in_turns(torch, {
+                "plain": lambda: fp.desc_forces_fused_ref(*args),
+                "kernel": lambda: fp.desc_forces_fused(*args)},
+                lead_ms=FUSED_LEAD_MS)
+            row["ms"], row["ms_spread"] = turns["kernel"]
+            row["plain_ms"], row["plain_ms_spread"] = turns["plain"]
+            bound_s, bound_by = fp.bound_seconds(B, Mr, D, F64_PEAK, MEM_RATE)
+            row["bound_ms"] = bound_s * 1e3
+            row["bound_by"] = bound_by
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        if label in ("one", "held_out"):
+            row["host_ms"] = host_ms_per_call(
+                torch, lambda: fp.desc_forces_fused(*args))
+        emit("kernel", name="fused_predict", **row)
+        if not row["ok"]:
+            fail(f"fused_predict disagrees with its plain version or with "
+                 f"itself ({label})")
+        if row.get("share_of_bound", 0.0) > 1.0:
+            fail(f"fused_predict ({label}) timed below its bound: "
+                 f"{row['ms']} ms against {row['bound_ms']} ms")
+        rows[label] = row
+    return rows
 
 
 def df64_kernel_rows(torch) -> dict:
@@ -240,6 +303,7 @@ def main() -> None:
     from mlff_tpu_torch.models.predict import Predictor
     from mlff_tpu_torch.models.task import create_task
     from mlff_tpu_torch.ops import cuda_build
+    from mlff_tpu_torch.ops import descriptor as dsc
     from mlff_tpu_torch.ops import df64_gemv as dg
     from mlff_tpu_torch.ops import fused_predict as fp
     from mlff_tpu_torch.ops import kernel as knl
@@ -251,14 +315,15 @@ def main() -> None:
     t0 = time.perf_counter()
     reports = cuda_build.build(sources)
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for r in reports.values() for ln in r.splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling" in ln]
-    emit("build", seconds=build_s, kernels=sources, ptxas=ptxas)
-    spills = [ln.strip() for ln in reports.get("df64_gemv", "").splitlines()
-              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads"
-              not in ln]
+    emit("build", seconds=build_s, kernels=sources,
+         ptxas=[ln for r in reports.values()
+                for ln in cuda_build.ptxas_lines(r)],
+         # queries per block, threads, shared bytes, resident blocks per SM
+         fused_predict_geometry={g.width: fp.library_geometry(
+             fp._library(), g.width) for g in fp.GEOMETRIES})
+    spills = [ln for r in reports.values() for ln in cuda_build.spill_lines(r)]
     if spills:
-        fail(f"ptxas reports spills in a df64 kernel: {spills}")
+        fail(f"ptxas reports spills: {spills}")
 
     # -- kernel ------------------------------------------------------------
     ds, perms = make_benchmark_dataset("ethanol", n_samples=N_SAMPLES,
@@ -272,36 +337,11 @@ def main() -> None:
     w = torch.as_tensor(rng.normal(size=(N_TRAIN, spec.dim)), device=dev)
     wt = knl.perm_expand_w(w, cache.P_idx).contiguous()
     Xqt = cache.Xqt.contiguous()
-    rows = []
-    for label, B in (("full", 512), ("ragged", 7)):
-        Xq = cache.Xq[:B].contiguous()
-        Mr = Xqt.shape[0] if label == "full" else Xqt.shape[0] - 37
-        args = (Xq, Xqt[:Mr].contiguous(), wt[:Mr].contiguous(), SIG)
-        F_k, E_k = fp.desc_forces_fused(*args)
-        F_r, E_r = fp.desc_forces_fused_ref(*args)
-        torch.cuda.synchronize()
-        F_k, E_k, F_r, E_r = (t.cpu().numpy() for t in (F_k, E_k, F_r, E_r))
-        okF, errF = close(F_k, F_r, np.abs(F_r).max())
-        okE, errE = close(E_k, E_r, np.abs(E_r).max())
-        row = {"shape": label, "B": B, "M": Mr, "D": spec.dim,
-               "max_abs_err_F": errF, "max_abs_err_E": errE,
-               "max_abs_F": float(np.abs(F_r).max()), "ok": okF and okE}
-        if label == "full":
-            row["ms"] = time_ms(torch, lambda: fp.desc_forces_fused(*args))
-            # the f64 Gram distances alone, the part of "ms" outside the
-            # hand-written kernels
-            row["dist_ms"] = time_ms(
-                torch, lambda: knl.pairwise_dist_gram(args[0], args[1]))
-            row["plain_ms"] = time_ms(
-                torch, lambda: fp.desc_forces_fused_ref(*args))
-            bound_s, bound_by = fp.bound_seconds(B, Mr, spec.dim, F64_PEAK,
-                                                 MEM_RATE)
-            row["bound_ms"] = bound_s * 1e3
-            row["bound_by"] = bound_by
-        rows.append(row)
-        emit("kernel", name="fused_predict", **row)
-        if not row["ok"]:
-            fail(f"fused_predict disagrees with its plain version ({label})")
+    held = np.setdiff1d(np.arange(N_SAMPLES), task["idxs_train"])
+    X_held, _ = dsc.descriptors_from_R(
+        spec, torch.as_tensor(ds["R"][held], dtype=torch.float64, device=dev))
+    fused_rows = fused_predict_rows(torch, cache.Xq[:512], Xqt, wt,
+                                    (knl.SQRT5 / SIG) * X_held)
     del cache, w, wt, Xqt
     df64_rows = df64_kernel_rows(torch)
 
@@ -351,7 +391,6 @@ def main() -> None:
         fail(f"{model['solver_iters']} PCG iterations > {MAX_ITERS}")
 
     # -- predict: through the fused kernel ---------------------------------
-    held = np.setdiff1d(np.arange(N_SAMPLES), task["idxs_train"])
     fast = Predictor(model, fast=True, device=dev)
     t0 = time.perf_counter()
     E_h, F_h = fast.predict(ds["R"][held])
@@ -431,7 +470,7 @@ def main() -> None:
                  "f64 model")
         df64_launches[phase] = launches_df
 
-    full = rows[0]
+    full = fused_rows["full"]
     kernels = [{
         "name": "fused_predict", "route": "cuda",
         "source": "mlff_tpu_torch/csrc/fused_predict.cu",
@@ -439,7 +478,8 @@ def main() -> None:
         "launches": launches, "max_abs_err": full["max_abs_err_F"],
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
-        "library_ms": None}]
+        "library_ms": None, "ms_spread": full["ms_spread"],
+        "share_of_bound": full["share_of_bound"]}]
     for name, line in (("df64_bt_v", 41), ("df64_b_x", 118)):
         main_row = df64_rows[(name, "main")]
         kernels.append({

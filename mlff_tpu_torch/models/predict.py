@@ -49,11 +49,14 @@ class Predictor:
         self.c = float(model.get("c", 0.0))
 
         q = knl.SQRT5 / self.sig
-        self.Xqt = knl.permuted_descriptors(q * X, self.P_idx)   # (M, D)
+        # contiguous once, whatever layout the gathers below produce: the
+        # fused kernel takes contiguous operands only
+        self.Xqt = knl.permuted_descriptors(
+            q * X, self.P_idx).contiguous()                      # (M, D)
         # w~: permuted per-point descriptor cotangents J^T alpha
         w = torch.as_tensor(np.array(model["R_d_desc_alpha"]),
                             dtype=torch.float64, device=dev)     # (N, D)
-        self.wt = knl.perm_expand_w(w, self.P_idx)               # (M, D)
+        self.wt = knl.perm_expand_w(w, self.P_idx).contiguous()  # (M, D)
 
         # energy-constraint coefficients, tiled per (point, perm)
         # (reference predict.py set_alphas: alphas_E_lin, :437-447)

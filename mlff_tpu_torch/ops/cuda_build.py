@@ -10,6 +10,8 @@ Builds happen at first use, never at import, into ``build/kernels`` beside
 the package (a directory git ignores).  The library name carries a hash of
 its source, so an edited source rebuilds and a stale library is never
 loaded.  ``build`` starts one ``nvcc`` per missing library, all at once.
+``build_variant`` compiles any other source with the same flags, for the
+timing tools that hold two designs of a kernel against each other.
 """
 
 from __future__ import annotations
@@ -75,6 +77,34 @@ def build(names) -> dict:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return reports
+
+
+def build_variant(name: str, source: str) -> tuple[ctypes.CDLL, str]:
+    """Compile ``source`` (a path) with the package's nvcc flags into
+    ``build/kernels/variant-<name>.so`` and load it.  Returns the library
+    and nvcc's output (the ptxas report)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"variant-{name}.so"
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(out), source],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    return ctypes.CDLL(str(out)), proc.stdout + proc.stderr
+
+
+def ptxas_lines(report: str) -> list:
+    """The lines of an nvcc ``-Xptxas -v`` report that name a kernel, its
+    registers or its spills."""
+    return [ln.strip() for ln in report.splitlines()
+            if "registers" in ln or "spill" in ln or "Compiling" in ln]
+
+
+def spill_lines(report: str) -> list:
+    """The lines of a ptxas report that admit to spilling."""
+    return [ln.strip() for ln in report.splitlines()
+            if "spill" in ln
+            and "0 bytes spill stores, 0 bytes spill loads" not in ln]
 
 
 @functools.lru_cache(maxsize=None)

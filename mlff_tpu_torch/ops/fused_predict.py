@@ -1,42 +1,114 @@
 """Fused descriptor-space force/energy contraction for prediction.
 
 The CUDA kernel ``csrc/fused_predict.cu`` replaces the TPU kernel
-``mlff_tpu/ops/pallas_predict.py::_contract_kernel``.  For a batch of query
-descriptors against the permuted training set it computes
+``mlff_tpu/ops/pallas_predict.py::_contract_kernel`` and the Gram-trick
+distances computed before it.  For a batch of query descriptors against the
+permuted training set it computes
 
-    dist  = ||q x_b - q x~_m||            (f64 Gram trick, outside the kernel)
+    dist  = ||q x_b - q x~_m||            (f64 Gram trick, clamped at 0)
     a     = 5/(3 sig^2) exp(-dist)
     dot   = (q x_b - q x~_m) . w~_m
     F     = sum_m a [ dot (q x_b - q x~_m) - (1 + dist) w~_m ]
     E     = sum_m a (1 + dist) dot / q
 
-without writing the (B, M) intermediates other than ``dist`` to device
-memory.  The arithmetic is f64, not the TPU kernel's f32: the cotangents w~
-of a lam = 1e-10 ridge solve are orders of magnitude larger than the forces
-they sum to, and an f32 contraction of a trained model misses the f64
-forces by far more than the tolerance of the f32 path
+without any (B, M) array in device memory: the four products run on the
+FP64 tensor cores inside the kernel, distances and weights on their tiles.
+The arithmetic is f64, not the TPU kernel's f32: the cotangents w~ of a
+lam = 1e-10 ridge solve are orders of magnitude larger than the forces they
+sum to, and an f32 contraction of a trained model misses the f64 forces by
+far more than the tolerance of the f32 path
 (``tests/test_torch_fused_predict.py`` shows it on the JAX kernel itself).
 
-``desc_forces_fused`` launches the kernel for CUDA tensors (or raises) and
-runs the plain PyTorch version ``desc_forces_fused_ref`` for CPU tensors.
-``desc_forces_fused.launches`` counts the kernel launches.
+``plan`` holds the launch geometry (which of the kernel's three widths takes
+D, the query tiles, the slabs of the training axis); the kernel source
+mirrors its constants and the wrapper holds the two against each other when
+the library is loaded.  ``desc_forces_fused`` launches the kernel for CUDA
+tensors (or raises) and runs the plain PyTorch version
+``desc_forces_fused_ref`` for CPU tensors.  ``desc_forces_fused.launches``
+counts the calls that launched the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
 from . import cuda_build
 from .kernel import SQRT5, pairwise_dist_gram
 
-# tile sizes of csrc/fused_predict.cu
-TB, TM = 32, 64
-# the kernel stages 2 TB D + 2 TM (D + 1) + 2 TB (TM + 1) f64 values in
-# shared memory; 227 KB per block bounds D
-SMEM_LIMIT = 232448
-MAX_D = (SMEM_LIMIT // 8 - 2 * TM - 2 * TB * (TM + 1)) // (2 * TB + 2 * TM)
+# the launch geometry of csrc/fused_predict.cu
+TM = 16                  # training rows in a shared-memory stage
+STAGES = 4               # stages in the ring
+MAX_GRID_Y = 65535
+# the widest descriptor the wrapper takes: molecules of up to 16 atoms
+# (D = 120)
+MAX_D = 129
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """One instantiation of the kernel: it takes D <= ``width``."""
+
+    width: int           # padded descriptor width, a multiple of 8
+    queries: int         # queries per block: 8 or 16 per warp
+    threads: int
+    blocks_per_sm: int   # blocks the plan counts on per SM
+
+    @property
+    def row_pitch(self) -> int:
+        """Doubles between staged rows: 4 mod 8 keeps the fragment loads of
+        a quad's 4 k-values x 8 rows on distinct banks."""
+        return self.width + 4
+
+    @property
+    def smem_bytes(self) -> int:
+        """xt and wt stages, and the two row terms of every staged row."""
+        return 8 * (2 * STAGES * TM * self.row_pitch + 2 * STAGES * TM)
+
+
+GEOMETRIES = (Geometry(40, 64, 128, 3), Geometry(72, 64, 128, 2),
+              Geometry(136, 64, 256, 1))
+
+
+@dataclass(frozen=True)
+class Plan:
+    """Launch geometry of one call: block (i, s) takes query tile i and the
+    training rows [s * rows_per_split, (s + 1) * rows_per_split)."""
+
+    geometry: Geometry
+    n_qtiles: int
+    n_split: int
+    rows_per_split: int   # whole stages of TM rows
+
+
+def geometry_for(D: int) -> Geometry:
+    if not 1 <= D <= MAX_D:
+        raise ValueError(f"descriptor dimension {D} is outside the kernel's "
+                         f"range of 1 to {MAX_D}")
+    return next(g for g in GEOMETRIES if D <= g.width)
+
+
+def plan_for(geo: Geometry, B: int, M: int, n_sm: int) -> Plan:
+    """The plan for one instantiation of the kernel: the training axis is
+    cut into as many slabs of whole stages as give every SM its
+    ``blocks_per_sm`` blocks in one wave, for one query as for thousands."""
+    n_qtiles = -(-B // geo.queries)
+    n_stages = -(-M // TM)
+    n_split = max(1, min(n_stages, geo.blocks_per_sm * n_sm // n_qtiles,
+                         MAX_GRID_Y))
+    rows = -(-n_stages // n_split) * TM
+    return Plan(geometry=geo, n_qtiles=n_qtiles, n_split=-(-M // rows),
+                rows_per_split=rows)
+
+
+@functools.lru_cache(maxsize=64)
+def plan(B: int, M: int, D: int, n_sm: int) -> Plan:
+    """The geometry for B >= 1 queries against M >= 1 training rows of width
+    D on a card with ``n_sm`` SMs."""
+    return plan_for(geometry_for(D), B, M, n_sm)
 
 
 def _check(Xq_query: torch.Tensor, Xqt: torch.Tensor, wt: torch.Tensor):
@@ -70,24 +142,50 @@ def desc_forces_fused_ref(Xq_query: torch.Tensor, Xqt: torch.Tensor,
     return F, E
 
 
-def split_plan(B: int, M: int, n_sm: int) -> tuple[int, int]:
-    """(n_split, rows_per_split): slabs of the training axis per query tile,
-    chosen so the grid fills the card in one wave of at most 2 blocks per SM
-    (the shared-memory limit at D = 36); slabs are whole TM tiles."""
-    n_btiles = -(-B // TB)
-    n_tiles = -(-M // TM)
-    n_split = max(1, min(n_tiles, 2 * n_sm // n_btiles))
-    rows = -(-n_tiles // n_split) * TM
-    return -(-M // rows), rows
-
-
-def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("fused_predict")
-    fn = lib.mlff_fused_predict
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-                   + [ctypes.c_double, ctypes.c_double, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of csrc/fused_predict.cu on a loaded
+    library."""
+    lib.mlff_fused_predict.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        + [ctypes.c_double, ctypes.c_double, ctypes.c_void_p])
+    lib.mlff_fused_predict.restype = ctypes.c_int
+    lib.mlff_fused_predict_geometry.argtypes = [ctypes.c_int,
+                                                ctypes.c_void_p]
+    lib.mlff_fused_predict_geometry.restype = ctypes.c_int
     return lib
+
+
+def library_geometry(lib: ctypes.CDLL, D: int) -> tuple[int, int, int, int]:
+    """(queries per block, threads, shared-memory bytes, resident blocks per
+    SM) of the instantiation of ``lib`` that takes width D, on the current
+    card."""
+    out = (ctypes.c_int * 4)()
+    err = lib.mlff_fused_predict_geometry(D, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"fused_predict geometry query failed: CUDA error "
+                           f"{err}")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """The built library, once its constants are known to be ``GEOMETRIES``:
+    a plan made for other tiles would leave rows or queries out."""
+    lib = _bind(cuda_build.load("fused_predict"))
+    for geo in GEOMETRIES:
+        queries, threads, smem, resident = library_geometry(lib, geo.width)
+        if ((queries, threads, smem) != (geo.queries, geo.threads,
+                                         geo.smem_bytes) or resident < 1):
+            raise RuntimeError(
+                f"csrc/fused_predict.cu and ops/fused_predict.py disagree at "
+                f"width {geo.width}: kernel {(queries, threads, smem)} with "
+                f"{resident} resident blocks per SM, plan {geo}")
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def desc_forces_fused(Xq_query: torch.Tensor, Xqt: torch.Tensor,
@@ -107,30 +205,45 @@ def desc_forces_fused(Xq_query: torch.Tensor, Xqt: torch.Tensor,
         raise ValueError(f"desc_forces_fused runs on cuda or cpu, not {dev}")
     B, D = Xq_query.shape
     M = Xqt.shape[0]
-    if D > MAX_D:
-        raise ValueError(f"descriptor dimension {D} exceeds the kernel's "
-                         f"shared-memory limit of {MAX_D}")
-    f_out = torch.zeros((B, D), dtype=torch.float64, device=dev)
-    e_out = torch.zeros((B,), dtype=torch.float64, device=dev)
     if B == 0 or M == 0:
-        return f_out, e_out
-    lib = _library()
-    with torch.cuda.device(dev):
-        dist = pairwise_dist_gram(Xq_query, Xqt)             # (B, M) f64
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        n_split, rows = split_plan(B, M, n_sm)
-        f_part = torch.empty((n_split, B, D), dtype=torch.float64, device=dev)
-        e_part = torch.empty((n_split, B), dtype=torch.float64, device=dev)
-        err = lib.mlff_fused_predict(
-            Xq_query.data_ptr(), Xqt.data_ptr(), wt.data_ptr(),
-            dist.data_ptr(), f_part.data_ptr(), e_part.data_ptr(),
-            f_out.data_ptr(), e_out.data_ptr(), B, M, D, n_split, rows,
-            5.0 / (3.0 * sig**2), SQRT5 / sig,
-            torch.cuda.current_stream(dev).cuda_stream)
+        geometry_for(D)      # an empty call still refuses a width too large
+        return (torch.zeros((B, D), dtype=torch.float64, device=dev),
+                torch.zeros((B,), dtype=torch.float64, device=dev))
+    p = plan(B, M, D, _sm_count(dev.index))
+    if torch.cuda.current_device() == dev.index:
+        F, E = _launch(_library(), Xq_query, Xqt, wt, sig, p)
+    else:
+        with torch.cuda.device(dev):
+            F, E = _launch(_library(), Xq_query, Xqt, wt, sig, p)
+    desc_forces_fused.launches += 1
+    return F, E
+
+
+@functools.lru_cache(maxsize=8)
+def _scratch(index: int, stream: int, doubles: int) -> torch.Tensor:
+    """The slabs' partials of one device and stream: calls on one stream run
+    in order, so they share it."""
+    return torch.empty(doubles, dtype=torch.float64,
+                       device=torch.device("cuda", index))
+
+
+def _launch(lib: ctypes.CDLL, Xq_query, Xqt, wt, sig: float, p: Plan):
+    """Both launches of one call on the current stream of the tensors'
+    device (the caller has made it the current device)."""
+    (B, D), M, dev = Xq_query.shape, Xqt.shape[0], Xq_query.device
+    # what torch.cuda.current_stream(dev).cuda_stream gives, without
+    # building the Stream object
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    f_out = torch.empty((B, D), dtype=torch.float64, device=dev)
+    e_out = torch.empty((B,), dtype=torch.float64, device=dev)
+    part = _scratch(dev.index, stream, p.n_split * (B * D + B))
+    err = lib.mlff_fused_predict(
+        Xq_query.data_ptr(), Xqt.data_ptr(), wt.data_ptr(), part.data_ptr(),
+        f_out.data_ptr(), e_out.data_ptr(), B, M, D, p.n_split,
+        p.rows_per_split, 5.0 / (3.0 * sig**2), SQRT5 / sig, stream)
     if err != 0:
         raise RuntimeError(f"fused_predict kernel launch failed: CUDA error "
                            f"{err}")
-    desc_forces_fused.launches += 1
     return f_out, e_out
 
 

@@ -19,7 +19,6 @@ JSON lines, the card's name and power limit last.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import subprocess
 import sys
@@ -44,25 +43,6 @@ def emit(**fields) -> None:
     print(json.dumps(fields), flush=True)
 
 
-def build_variant(name: str, source: str) -> ctypes.CDLL:
-    """Compile ``source`` with the package's nvcc flags and load it."""
-    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = cuda_build.BUILD_DIR / f"variant-{name}.so"
-    proc = subprocess.run(
-        [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out), source],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}"
-                           f"{proc.stderr}")
-    emit(variant=name, ptxas=ptxas_lines(proc.stdout + proc.stderr))
-    return dg._bind(ctypes.CDLL(str(out)))
-
-
-def ptxas_lines(report: str) -> list:
-    return [ln.strip() for ln in report.splitlines()
-            if "registers" in ln or "spill" in ln or "Compiling" in ln]
-
-
 def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
@@ -77,11 +57,14 @@ def main() -> None:
         sys.exit("time_df64_gemv: no CUDA device")
 
     reports = cuda_build.build(["df64_gemv"])
-    emit(build="df64_gemv", ptxas=ptxas_lines(reports.get("df64_gemv", "")))
+    emit(build="df64_gemv",
+         ptxas=cuda_build.ptxas_lines(reports.get("df64_gemv", "")))
     libs = {"kernel": dg._library()}
     for spec in args.variant:
         name, _, source = spec.partition("=")
-        libs[name] = build_variant(name, source)
+        lib, report = cuda_build.build_variant(name, source)
+        emit(variant=name, ptxas=cuda_build.ptxas_lines(report))
+        libs[name] = dg._bind(lib)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     failed = False

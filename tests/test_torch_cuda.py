@@ -9,7 +9,11 @@ nothing of JAX, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 The fused contraction is f64 on both sides.  On random cotangents 1e-10
-relative covers the summation order.  On a trained model the contraction's
+relative covers the summation order, far inside ``chip_smoke.py``'s
+atol 2e-5 * max|F| + rtol 2e-4; that holds at every descriptor width the
+kernel is built for, with ragged B and M, and where queries are training
+rows (zero distances, which the kernel and the plain version round
+differently).  On a trained model the contraction's
 terms cancel by ~1e6, so the fast and the f64 Predictor are held to 1e-8
 relative, and energies on the scale of the contraction's output before the
 integration constant c is added.  The df64 passes are held to 3e-12
@@ -32,6 +36,7 @@ from mlff_tpu_torch.ops import df64  # noqa: E402
 from mlff_tpu_torch.ops import df64_gemv  # noqa: E402
 from mlff_tpu_torch.ops import fused_predict as fp  # noqa: E402
 from mlff_tpu_torch.ops import kernel as knl  # noqa: E402
+from mlff_tpu_torch.tools.time_fused_predict import operands  # noqa: E402
 
 SIG = 10.0
 RTOL, MODEL_RTOL = 1e-10, 1e-8
@@ -70,6 +75,88 @@ def test_kernel_matches_plain_version(small, B):
     torch.cuda.synchronize()
     assert fp.desc_forces_fused.launches == before + 1
     assert _rel_err(F_k, F_r) <= RTOL and _rel_err(E_k, E_r) <= RTOL
+
+
+# descriptor width -> (molecule, training geometries); 3 has no molecule
+WIDTHS = {3: None, 36: ("ethanol", 100), 66: ("uracil", 300),
+          105: ("toluene", 40), 120: ("salicylic", 300)}
+
+
+@pytest.fixture(scope="module")
+def by_width(small):
+    """{D: (513 queries, Xqt, wt)} on the card, M ragged (not a multiple of
+    the kernel's 16-row stages)."""
+    out = {}
+    for D, source in WIDTHS.items():
+        if source is None:
+            rng = np.random.default_rng(D)
+            Xq, Xqt, wt = (torch.as_tensor(a, device="cuda") for a in (
+                0.2 + rng.random((513, D)), 0.2 + rng.random((301, D)),
+                rng.normal(size=(301, D))))
+        else:
+            Xq, Xqt, wt = operands(*source, 513, "cuda")
+            Xqt, wt = Xqt[:-3].contiguous(), wt[:-3].contiguous()
+        assert Xq.shape == (513, D) and Xqt.shape[0] % 16 != 0
+        out[D] = (Xq, Xqt, wt)
+    return out
+
+
+@pytest.mark.parametrize("B", [1, 7, 40, 513])
+@pytest.mark.parametrize("D", sorted(WIDTHS))
+def test_kernel_matches_plain_version_at_every_width(by_width, D, B):
+    Xq, Xqt, wt = by_width[D]
+    args = (Xq[:B].contiguous(), Xqt, wt)
+    before = fp.desc_forces_fused.launches
+    F_k, E_k = fp.desc_forces_fused(*args, SIG)
+    F_r, E_r = fp.desc_forces_fused_ref(*args, SIG)
+    torch.cuda.synchronize()
+    assert fp.desc_forces_fused.launches == before + 1
+    assert F_k.shape == (B, D) and E_k.shape == (B,)
+    assert torch.isfinite(F_k).all() and torch.isfinite(E_k).all()
+    assert _rel_err(F_k, F_r) <= RTOL and _rel_err(E_k, E_r) <= RTOL
+
+
+@pytest.mark.parametrize("D", [36, 105])
+def test_kernel_matches_plain_version_on_self_pairs(by_width, D):
+    """Queries taken from the training rows: d^2 of a row against itself is
+    rounding noise of either sign, clamped to 0 or not, in the kernel and in
+    the plain version differently; F and E feel it only to second order."""
+    _, Xqt, wt = by_width[D]
+    args = (Xqt[5:205].contiguous(), Xqt, wt)
+    F_k, E_k = fp.desc_forces_fused(*args, SIG)
+    F_r, E_r = fp.desc_forces_fused_ref(*args, SIG)
+    torch.cuda.synchronize()
+    assert _rel_err(F_k, F_r) <= RTOL and _rel_err(E_k, E_r) <= RTOL
+
+
+@pytest.mark.parametrize("B", [1, 513])
+def test_kernel_gives_the_same_bits_twice(by_width, B):
+    """The slabs' partials are added in a fixed order, without atomics."""
+    Xq, Xqt, wt = by_width[36]
+    args = (Xq[:B].contiguous(), Xqt, wt)
+    F_1, E_1 = fp.desc_forces_fused(*args, SIG)
+    for _ in range(3):
+        F_2, E_2 = fp.desc_forces_fused(*args, SIG)
+        assert torch.equal(F_1, F_2) and torch.equal(E_1, E_2)
+
+
+def test_wrapper_raises_above_the_widest_descriptor(small):
+    wide = torch.zeros((4, 136), dtype=torch.float64, device="cuda")
+    before = fp.desc_forces_fused.launches
+    with pytest.raises(ValueError, match=str(fp.MAX_D)):
+        fp.desc_forces_fused(wide, wide.clone(), wide.clone(), SIG)
+    assert fp.desc_forces_fused.launches == before
+
+
+def test_kernel_geometry_is_the_plans(small):
+    """What the built library reports for each width is what ``plan``
+    assumes, and the card keeps at least the planned blocks resident."""
+    lib = fp._library()
+    for geo in fp.GEOMETRIES:
+        queries, threads, smem, resident = fp.library_geometry(lib, geo.width)
+        assert (queries, threads, smem) == (geo.queries, geo.threads,
+                                            geo.smem_bytes)
+        assert resident >= geo.blocks_per_sm
 
 
 def test_fast_predictor_matches_f64_predictor(small):

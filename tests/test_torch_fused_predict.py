@@ -6,8 +6,12 @@ f64 contraction.  Against the f32 Pallas kernel the tolerances are those of
 ``tests/test_pallas_predict.py`` (atol 2e-5 * max|F|, rtol 2e-4): the
 Pallas side is f32.  Against the f64 contraction the plain version (f64)
 agrees to 1e-10 relative, the summation order of products whose terms
-cancel by ~1e3.  The CUDA kernel itself is compared with the plain version
-on the card (``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
+cancel by ~1e3; that is checked at two descriptor widths (ethanol, D = 36,
+and uracil, D = 66).  The CUDA kernel itself is compared with the plain
+version on the card (``tests/test_torch_cuda.py`` and ``chip_smoke.py``);
+its launch geometry (``plan``) is pure Python and checked here: slabs of
+whole 16-row stages that cover the training axis once, a grid and a
+shared-memory size the card takes.
 """
 
 import numpy as np
@@ -28,14 +32,13 @@ ATOL_REL, RTOL_F32 = 2e-5, 2e-4   # tests/test_pallas_predict.py
 RTOL_F64 = 1e-10
 
 
-@pytest.fixture(scope="module")
-def operands():
-    """Held-out query descriptors against 30 permuted training points
-    (M = 180), random cotangents; f64 numpy."""
-    ds, _ = make_benchmark_dataset("ethanol", n_samples=70, seed=11,
+def _operands(molecule):
+    """Held-out query descriptors of ``molecule`` against 30 permuted
+    training points, random cotangents; f64 numpy."""
+    ds, _ = make_benchmark_dataset(molecule, n_samples=70, seed=11,
                                    n_train=30)
-    spec = jd.make_spec(9)
-    P_idx = jnp.asarray(jd.desc_perms(benchmark_perms("ethanol")))
+    spec = jd.make_spec(ds["R"].shape[1])
+    P_idx = jnp.asarray(jd.desc_perms(benchmark_perms(molecule)))
     q = jk.SQRT5 / SIG
     X, _ = jd.descriptors_from_R(spec, jnp.asarray(ds["R"][:30]))
     Xq_query, _ = jd.descriptors_from_R(spec, jnp.asarray(ds["R"][30:]))
@@ -43,6 +46,18 @@ def operands():
     w = np.random.default_rng(1).normal(size=(30, spec.dim))
     wt = jk.perm_expand_w(jnp.asarray(w), P_idx)
     return np.asarray(q * Xq_query), np.asarray(Xqt), np.asarray(wt)
+
+
+@pytest.fixture(scope="module")
+def operands():
+    """Ethanol: D = 36, M = 180."""
+    return _operands("ethanol")
+
+
+@pytest.fixture(scope="module")
+def operands_uracil():
+    """Uracil, 12 atoms: D = 66."""
+    return _operands("uracil")
 
 
 def _torch(*arrays):
@@ -62,8 +77,7 @@ def test_plain_version_matches_pallas_kernel(operands, B):
                                atol=ATOL_REL * float(E_t.abs().max()))
 
 
-@pytest.mark.parametrize("B", [7, 40])
-def test_plain_version_matches_f64_contraction(operands, B):
+def _check_against_f64_contraction(operands, B):
     Xq, Xqt, wt = (jnp.asarray(a) for a in operands)
     dist = jk.pairwise_dist_gram(Xq[:B], Xqt)
     A_exp = (5.0 / (3.0 * SIG**2)) * jnp.exp(-dist)
@@ -71,9 +85,33 @@ def test_plain_version_matches_f64_contraction(operands, B):
                                  wt)
     F_t, E_t = fp.desc_forces_fused_ref(
         *_torch(operands[0][:B], operands[1], operands[2]), SIG)
+    assert F_t.shape == (B, operands[0].shape[1]) and E_t.shape == (B,)
     for got, want in ((F_t, F_j), (E_t, E_j)):
         want = np.asarray(want)
         assert np.abs(got.numpy() - want).max() <= RTOL_F64 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("B", [7, 40])
+def test_plain_version_matches_f64_contraction(operands, B):
+    _check_against_f64_contraction(operands, B)
+
+
+@pytest.mark.parametrize("B", [1, 7, 40])
+def test_plain_version_matches_f64_contraction_at_uracil_width(
+        operands_uracil, B):
+    assert operands_uracil[0].shape[1] == 66
+    _check_against_f64_contraction(operands_uracil, B)
+
+
+def test_plain_version_matches_pallas_kernel_at_uracil_width(operands_uracil):
+    Xq, Xqt, wt = operands_uracil
+    F_p, E_p = desc_forces_pallas(jnp.asarray(Xq[:7]), jnp.asarray(Xqt),
+                                  jnp.asarray(wt), sig=SIG, interpret=True)
+    F_t, E_t = fp.desc_forces_fused_ref(*_torch(Xq[:7], Xqt, wt), SIG)
+    np.testing.assert_allclose(F_t.numpy(), np.asarray(F_p), rtol=RTOL_F32,
+                               atol=ATOL_REL * float(F_t.abs().max()))
+    np.testing.assert_allclose(E_t.numpy(), np.asarray(E_p), rtol=RTOL_F32,
+                               atol=ATOL_REL * float(E_t.abs().max()))
 
 
 def test_wrapper_on_cpu_runs_plain_version_without_launching(operands):
@@ -98,8 +136,70 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(operands, bad):
         fp.desc_forces_fused(Xq, Xqt, wt, SIG)
 
 
-def test_split_plan_covers_the_training_axis():
-    for B, M in ((512, 6996), (7, 6959), (1, 64), (600, 65)):
-        n_split, rows = fp.split_plan(B, M, 132)
-        assert rows % fp.TM == 0
-        assert (n_split - 1) * rows < M <= n_split * rows
+def test_width_limit_is_the_kernels_and_is_named():
+    """The CPU route has no kernel to fit and takes the widest descriptor;
+    the kernel's geometry refuses the next width, naming the limit."""
+    rng = np.random.default_rng(0)
+    Xq, Xqt, wt = _torch(rng.normal(size=(3, fp.MAX_D)),
+                         rng.normal(size=(8, fp.MAX_D)),
+                         rng.normal(size=(8, fp.MAX_D)))
+    F, E = fp.desc_forces_fused(Xq, Xqt, wt, SIG)
+    assert F.shape == (3, fp.MAX_D) and E.shape == (3,)
+    with pytest.raises(ValueError, match=str(fp.MAX_D)):
+        fp.geometry_for(fp.MAX_D + 1)
+
+
+N_SM = 132     # an H100
+PLAN_SHAPES = [(512, 6996), (7, 6959), (1, 64), (600, 65), (1, 6996)]
+PLAN_WIDTHS = [3, 36, 66, 120, 129]
+plan_cases = pytest.mark.parametrize(
+    "shape,D", [(s, d) for s in PLAN_SHAPES for d in PLAN_WIDTHS],
+    ids=[f"{b}x{m}-D{d}" for b, m in PLAN_SHAPES for d in PLAN_WIDTHS])
+
+
+@plan_cases
+def test_plan_covers_the_training_axis_once_in_whole_stages(shape, D):
+    (B, M), p = shape, fp.plan(*shape, D, N_SM)
+    assert p.rows_per_split % fp.TM == 0 and p.rows_per_split >= fp.TM
+    seen = np.zeros(M, dtype=np.int32)
+    for s in range(p.n_split):
+        lo = s * p.rows_per_split
+        assert lo < M                      # no slab is empty
+        seen[lo:min(M, lo + p.rows_per_split)] += 1
+    assert np.all(seen == 1)
+    assert (p.n_qtiles - 1) * p.geometry.queries < B \
+        <= p.n_qtiles * p.geometry.queries
+
+
+@plan_cases
+def test_plan_fits_the_card(shape, D):
+    p = fp.plan(*shape, D, N_SM)
+    geo = p.geometry
+    assert D <= geo.width <= 136 and geo.width % 8 == 0
+    assert geo.row_pitch % 8 == 4 and geo.row_pitch >= geo.width
+    assert geo.smem_bytes <= 232448
+    assert geo.blocks_per_sm * geo.smem_bytes <= 232448
+    assert geo.threads % 32 == 0 and geo.threads <= 1024
+    assert geo.queries in (8 * geo.threads // 32, 16 * geo.threads // 32)
+    assert 1 <= p.n_split <= 65535 and 1 <= p.n_qtiles < 2**31
+    # one wave: no more blocks than the card keeps resident, unless the
+    # query tiles alone exceed that
+    assert (p.n_qtiles * p.n_split <= geo.blocks_per_sm * N_SM
+            or p.n_split == 1)
+
+
+@pytest.mark.parametrize("D", [0, 130, 136, 1000])
+def test_plan_rejects_a_width_outside_the_kernel_range(D):
+    with pytest.raises(ValueError, match="129"):
+        fp.plan(512, 6996, D, N_SM)
+
+
+def test_main_shape_plan_fills_the_card():
+    """B = 512, M = 6996, D = 36 on 132 SMs: 8 query tiles x 49 slabs of 9
+    stages, 392 of the 396 resident blocks; one query still gets a block
+    for every SM."""
+    p = fp.plan(512, 6996, 36, N_SM)
+    assert (p.geometry.width, p.geometry.queries) == (40, 64)
+    assert (p.n_qtiles, p.n_split, p.rows_per_split) == (8, 49, 144)
+    one = fp.plan(1, 6996, 36, N_SM)
+    assert one.n_qtiles == 1 and one.n_split >= N_SM
