@@ -36,6 +36,17 @@ Phases, each printing one JSON line of its own numbers:
                        two df64 GEMV kernels
   train_colblock_df64  the same with nystrom_block_cols=512 (3 column
                        blocks, 2 components)
+  zoo_full   the train phase's task with the factor preconditioners at
+             k = 1536: cholesky (the greedy loop), cholesky_panel,
+             rpcholesky, truncated_cholesky, cholesky_panel with
+             apply_impl="df64" (the df64 kernels apply a Cholesky factor),
+             and solver_name="cg_cholesky"; one line each, held-out forces
+             through Predictor(fast=True)
+  zoo_dense  calibrated ethanol at N_train = 120 (n = 3,240, k/n = 15%),
+             where the dense families fit: all fourteen strategy strings,
+             the preconditioned spectrum (flag_eigvals), a restarted solve
+             from 2 inducing points, nystrom_method="chol", and the analytic
+             solver, whose forces every converged cg model must match
 
 Then the kernel table as one JSON line, the card's name and power limit as
 nvidia-smi reports them, and as the last line
@@ -79,6 +90,23 @@ COLBLOCK_COLS = 512     # 3 column blocks of the k = 1536 factor
 # same tolerance, predict held-out forces of the same quality: their force
 # MAEs agree within 10%, which still catches a broken solve
 MAE_RATIO_LIMIT = 0.1
+# zoo_full: (strategy or solver, extra task fields)
+ZOO_FULL = (("cholesky", {}), ("cholesky_panel", {}), ("rpcholesky", {}),
+            ("truncated_cholesky", {}),
+            ("cholesky_panel", {"apply_impl": "df64"}), ("cg_cholesky", {}))
+# every factor row must beat what catches a preconditioner that stopped
+# working: the four factor strategies took 216-247 iterations on this task
+# (PERF.md section 2), lev_random 285
+ZOO_MAX_ITERS = 320
+# zoo_dense: the size the dense families allow, and the strategies that are
+# controls (built to precondition badly), which need not converge
+ZOO_DENSE_N_TRAIN, ZOO_DENSE_FRACTION = 120, 0.15
+ZOO_DENSE_MAX_ITERS = 6000
+ZOO_CONTROLS = ("inverse_lev", "eigvec_precon_block_diagonal",
+                "eigvec_precon_atomic_interactions")
+# cg models against the analytic model on training geometries
+# (tests/test_train_e2e.py::test_cg_matches_analytic)
+ANALYTIC_ATOL_REL = 5e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -287,6 +315,148 @@ def apply_times(torch, B64) -> None:
     emit("apply", n=n, m=m, **times)
 
 
+def zoo_full(torch, tr, task, ds, held, mae_ref, counters) -> dict:
+    """The factor preconditioners at the main task's full width.  Returns
+    the kernel launches of the phase."""
+    from mlff_tpu_torch.models.predict import Predictor
+
+    fp, dg = counters
+    fp.desc_forces_fused.launches = 0
+    dg.df64_bt_v.launches = 0
+    dg.df64_b_x.launches = 0
+    n = int(np.asarray(task["F_train"]).size)
+    for name, extra in ZOO_FULL:
+        solver = "cg_cholesky" if name == "cg_cholesky" else "cg"
+        kw = {} if solver == "cg_cholesky" else {"str_preconditioner": name}
+        before = (dg.df64_bt_v.launches, dg.df64_b_x.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train(dict(task, solver_name=solver, **extra),
+                     n_columns=K_COLUMNS, **kw)
+        train_s = time.perf_counter() - t0
+        info = tr.last_info
+        _, F = Predictor(m, fast=True, device=tr.device).predict(ds["R"][held])
+        mae = float(np.abs(F - ds["F"][held]).mean())
+        iters = int(m["solver_iters"])
+        row = dict(
+            strategy=name, n=n, k=K_COLUMNS, **extra,
+            build_s=info.get("total_time_preconditioner",
+                             info.get("total_time_cholesky_s")),
+            factor_s=info.get("total_time_cholesky_s"),
+            iters=iters, converged=bool(m["is_conv"]),
+            cg_s=info["total_time_cg"], train_s=train_s,
+            remaining_diag_error=info.get("remaining_diag_error"),
+            min_pivot=info.get("min_pivot"),
+            force_mae_held_out=mae, force_mae_held_out_train=mae_ref,
+            df64_launches=[dg.df64_bt_v.launches - before[0],
+                           dg.df64_b_x.launches - before[1]])
+        emit("zoo_full", **row)
+        if not m["is_conv"] or iters > ZOO_MAX_ITERS:
+            fail(f"zoo_full {name}: converged={m['is_conv']} in {iters} PCG "
+                 f"iterations (limit {ZOO_MAX_ITERS})")
+        if not (np.all(np.isfinite(F))
+                and abs(mae / mae_ref - 1.0) <= MAE_RATIO_LIMIT):
+            fail(f"zoo_full {name}: held-out force MAE {mae} against "
+                 f"{mae_ref} of the train phase's model")
+        if extra.get("apply_impl") == "df64" and min(row["df64_launches"]) == 0:
+            fail(f"zoo_full {name}: the df64 apply of a Cholesky factor did "
+                 "not launch both df64 kernels")
+    launches = {"fused_predict": fp.desc_forces_fused.launches,
+                "df64_bt_v": dg.df64_bt_v.launches,
+                "df64_b_x": dg.df64_b_x.launches}
+    if min(launches.values()) == 0:
+        fail(f"zoo_full did not launch every kernel: {launches}")
+    return launches
+
+
+def zoo_dense(torch, dev) -> None:
+    """Every strategy string, the spectrum, a restarted solve, the fused
+    Cholesky method and the analytic solver at a size the dense families
+    allow."""
+    from mlff_tpu_torch.data.synthetic import make_benchmark_dataset
+    from mlff_tpu_torch.models.gdml import Trainer
+    from mlff_tpu_torch.models.predict import Predictor
+    from mlff_tpu_torch.models.task import create_task
+    from mlff_tpu_torch.solvers.iterative import ALL_STRATEGIES
+
+    N = ZOO_DENSE_N_TRAIN
+    ds, perms = make_benchmark_dataset("ethanol", n_samples=N + 50, seed=11,
+                                       n_train=N)
+    task = create_task(ds, N, ds, n_valid=50, sig=SIG, solver="cg",
+                       perms=perms)
+    task["solver_maxiter"] = ZOO_DENSE_MAX_ITERS
+    tr = Trainer(device=dev)
+    R10 = np.asarray(task["R_train"])[:10]
+
+    t0 = time.perf_counter()
+    m_an = tr.train(dict(task, solver_name="analytic"))
+    _, F_an = Predictor(m_an, device=dev).predict(R10)
+    scale = float(np.abs(F_an).max())
+    emit("zoo_dense", row="analytic", n=27 * N,
+         train_s=time.perf_counter() - t0, max_abs_F=scale)
+    if not (F_an.shape == (10, 9, 3) and np.all(np.isfinite(F_an))):
+        fail("zoo_dense: the analytic model's forces are not finite")
+
+    def check(label, m):
+        """A converged cg model's forces against the analytic model's."""
+        _, F = Predictor(m, device=dev).predict(R10)
+        err = float(np.abs(F - F_an).max())
+        if m["is_conv"] and not err <= ANALYTIC_ATOL_REL * scale:
+            fail(f"zoo_dense {label}: forces miss the analytic model's by "
+                 f"{err} (max |F| {scale})")
+        return err
+
+    svd_cache: dict = {}
+    for strategy in ALL_STRATEGIES:
+        t0 = time.perf_counter()
+        m = tr.train(task, break_percentage=ZOO_DENSE_FRACTION,
+                     str_preconditioner=strategy, svd_cache=svd_cache)
+        info = tr.last_info
+        emit("zoo_dense", row="strategy", strategy=strategy, n=27 * N,
+             k=len(m["inducing_pts_idxs"]),
+             build_s=info["total_time_preconditioner"],
+             iters=int(m["solver_iters"]), converged=bool(m["is_conv"]),
+             cg_s=info["total_time_cg"], train_s=time.perf_counter() - t0,
+             max_abs_err_F_vs_analytic=check(strategy, m))
+        if not m["is_conv"] and strategy not in ZOO_CONTROLS:
+            fail(f"zoo_dense {strategy}: not converged in "
+                 f"{m['solver_iters']} iterations")
+
+    # the spectrum of P^-1 (K + lam I): real parts, all positive
+    m = tr.train(task, break_percentage=ZOO_DENSE_FRACTION,
+                 str_preconditioner="lev_random", flag_eigvals=True)
+    ev, ev_K = tr.last_info["eigvals"], tr.last_info["eigvals_K"]
+    emit("zoo_dense", row="flag_eigvals", strategy="lev_random",
+         iters=int(m["solver_iters"]), eig_min=float(ev.min()),
+         eig_max=float(ev.max()), eig_K_min=float(ev_K.min()),
+         eig_K_max=float(ev_K.max()))
+    if not (ev.shape == (27 * N,) and np.all(np.isfinite(ev)) and ev.min() > 0
+            and m["solver_iters"] == 10):
+        fail("zoo_dense flag_eigvals: the preconditioned spectrum is not "
+             "positive, or the 10-iteration cap did not hold")
+
+    # restarts from a deliberately small inducing set
+    m = tr.train(dict(task, n_inducing_pts_init=2), break_percentage=None,
+                 str_preconditioner="lev_random", allow_restarts=True)
+    emit("zoo_dense", row="allow_restarts", strategy="lev_random",
+         num_restarts=int(m["num_restarts"]), iters=int(m["solver_iters"]),
+         converged=bool(m["is_conv"]), k_final=len(m["inducing_pts_idxs"]),
+         max_abs_err_F_vs_analytic=check("allow_restarts", m))
+    if not m["is_conv"] or m["num_restarts"] < 1:
+        fail(f"zoo_dense allow_restarts: converged={m['is_conv']} after "
+             f"{m['num_restarts']} restarts")
+
+    m = tr.train(dict(task, nystrom_method="chol"),
+                 break_percentage=ZOO_DENSE_FRACTION,
+                 str_preconditioner="lev_random")
+    emit("zoo_dense", row="nystrom_method_chol", strategy="lev_random",
+         iters=int(m["solver_iters"]), converged=bool(m["is_conv"]),
+         build_s=tr.last_info["total_time_preconditioner"],
+         max_abs_err_F_vs_analytic=check("nystrom_method=chol", m))
+    if not m["is_conv"]:
+        fail("zoo_dense nystrom_method=chol: not converged")
+
+
 def main() -> None:
     import torch
 
@@ -470,12 +640,17 @@ def main() -> None:
                  "f64 model")
         df64_launches[phase] = launches_df
 
+    # -- zoo_full, zoo_dense: the rest of the preconditioner zoo -------------
+    zoo_launches = zoo_full(torch, tr, task, ds, held, mae_xla, (fp, dg))
+    zoo_dense(torch, dev)
+
     full = fused_rows["full"]
     kernels = [{
         "name": "fused_predict", "route": "cuda",
         "source": "mlff_tpu_torch/csrc/fused_predict.cu",
         "replaces": "mlff_tpu/ops/pallas_predict.py:52",
-        "launches": launches, "max_abs_err": full["max_abs_err_F"],
+        "launches": launches, "launches_zoo_full": zoo_launches["fused_predict"],
+        "max_abs_err": full["max_abs_err_F"],
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
         "library_ms": None, "ms_spread": full["ms_spread"],
@@ -487,6 +662,7 @@ def main() -> None:
             "source": "mlff_tpu_torch/csrc/df64_gemv.cu",
             "replaces": f"mlff_tpu/ops/pallas_df64.py:{line}",
             "launches": df64_launches["train_df64"][name],
+            "launches_zoo_full": zoo_launches[name],
             "max_abs_err": main_row["max_abs_err"],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

@@ -64,6 +64,24 @@ def split_preconditioner_from_numpy(B, W2, lam, device=None
         lam=float(lam), info={})
 
 
+def factor_preconditioner_from_numpy(L, lam, device=None
+                                     ) -> pc.WoodburySplitPreconditioner:
+    """Port preconditioner P = L L^T + lam I from a low-rank factor L (n, k)
+    as a JAX factorization returns it (``res.L`` of the pivoted-Cholesky
+    family): the port's ``woodbury_from_factor`` of the same factor."""
+    dev = resolve_device(device)
+    return pc.woodbury_from_factor(_tensor(L, np.float64, dev), float(lam))
+
+
+def woodbury_preconditioner_from_numpy(T, lam, device=None
+                                       ) -> pc.WoodburyPreconditioner:
+    """Port fused Woodbury preconditioner from the (k, n) factor T that a
+    JAX ``WoodburyPreconditioner`` holds (its row padding included)."""
+    dev = resolve_device(device)
+    return pc.WoodburyPreconditioner(T=_tensor(T, np.float64, dev),
+                                     lam=float(lam), info={})
+
+
 def df64_preconditioner_from_numpy(Bh, Bl, W2, lam, Bm=None, device=None
                                    ) -> pc.DF64WoodburyPreconditioner:
     """Port df64 preconditioner from the f32 words of B (hi, lo and the

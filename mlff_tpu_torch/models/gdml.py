@@ -1,10 +1,11 @@
-"""Training orchestration: the 'cg' solver, label normalization, model
-creation, integration-constant recovery.
+"""Training orchestration: solver dispatch ('analytic', 'cg',
+'cg_cholesky'), label normalization, model creation, integration-constant
+recovery.
 
-PyTorch port of the main slice of ``mlff_tpu.models.gdml`` (reference:
+PyTorch port of ``mlff_tpu.models.gdml`` (reference:
 sgdml/train.py:707-1119).  A ``Trainer`` is a plain object bound to one
 device (cuda by default).  ``lam`` is bumped from the task's 1e-15 to 1e-10
-for the CG solver (reference train.py:865-866, 910-911); labels are
+for the two CG solvers (reference train.py:865-866, 910-911); labels are
 normalized by their standard deviation (train.py:835-845).  The model dict
 has the JAX package's keys and sign convention (``alphas_F = -alpha_psd``),
 so npz model files are interchangeable between the two packages.
@@ -20,7 +21,11 @@ import torch
 from .. import __version__, resolve_device, synchronize
 from ..ops import descriptor as dsc
 from ..ops import kernel as knl
+from ..solvers import preconditioners as pc
+from ..solvers.analytic import solve_analytic
+from ..solvers.cg import pcg
 from ..solvers.iterative import solve_iterative
+from ..solvers.pivoted_cholesky import pivoted_cholesky
 from ..utils.log import get_logger
 from .predict import Predictor
 
@@ -43,10 +48,13 @@ class Trainer:
 
     ``last_info`` holds the full solver info of the latest ``train`` call,
     including the Nyström build diagnostics (``last_info["nystrom"]``:
-    whether the Gram guard fired, its probe error, stage times)."""
+    whether the Gram guard fired, its probe error, stage times).  With
+    ``return_K`` the analytic solver's ``train`` returns
+    (model, K, alphas_psd), K the dense PSD kernel as a NumPy array."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, return_K: bool = False):
         self.device = resolve_device(device)
+        self.return_K = return_K
         self.last_info: dict = {}
 
     # -- building blocks ---------------------------------------------------
@@ -99,15 +107,13 @@ class Trainer:
         callback=None,
         save_progr_callback=None,
         allow_restarts: bool = False,
+        svd_cache: dict | None = None,
     ) -> dict:
-        """Train a model for the task with the 'cg' solver
-        (reference train.py:707-970)."""
+        """Train a model for the task (reference train.py:707-970)."""
         task = dict(task)
         solver = str(task["solver_name"])
-        if solver != "cg":
-            raise NotImplementedError(
-                f"solver {solver!r}: the analytic and cg_cholesky solvers are "
-                "ROADMAP module item 9")
+        if solver not in ("analytic", "cg", "cg_cholesky"):
+            raise ValueError(f"unknown solver {solver!r}")
         if task.get("use_E_cstr"):
             raise NotImplementedError(
                 "energy-constrained training is ROADMAP module item 10")
@@ -127,40 +133,86 @@ class Trainer:
                 "kernel caches above 3 GB need the on-the-fly matvec, ROADMAP "
                 "module item 10")
 
-        task["lam"] = CG_LAM  # stronger ridge for the iterative path
-        t_cache = time.perf_counter()
-        cache = knl.build_cache(X, Jc, S, P_idx, float(task["sig"]), CG_LAM,
-                                device=self.device)
-        synchronize(self.device)
-        cache_build_s = time.perf_counter() - t_cache
-        log.info("kernel cache build: %.2fs", cache_build_s)
-        res = solve_iterative(
-            spec, cache, task, y, y_std,
-            break_percentage=break_percentage,
-            str_preconditioner=str_preconditioner,
-            flag_eigvals=flag_eigvals,
-            callback=callback,
-            save_progr_callback=self._wrap_ckpt(save_progr_callback, task, X,
-                                                Jc, y, y_std),
-            allow_restarts=allow_restarts,
-        )
+        num_iters = None
+        resid = None
+        inducing = None
+        K_dense = None
+
+        if solver == "analytic":
+            cache = knl.build_cache(X, Jc, S, P_idx, float(task["sig"]),
+                                    float(task["lam"]), device=self.device)
+            t0 = time.perf_counter()
+            out = solve_analytic(
+                spec, cache, y, return_K=self.return_K,
+                cprsn_keep_atoms_idxs=task.get("cprsn_keep_atoms_idxs"))
+            alphas_psd, K_dense = out if self.return_K else (out, None)
+            info_solver = {"total_time_solve": time.perf_counter() - t0}
+        else:
+            task["lam"] = CG_LAM  # stronger ridge for the iterative paths
+            t_cache = time.perf_counter()
+            cache = knl.build_cache(X, Jc, S, P_idx, float(task["sig"]),
+                                    CG_LAM, device=self.device)
+            synchronize(self.device)
+            cache_build_s = time.perf_counter() - t_cache
+            log.info("kernel cache build: %.2fs", cache_build_s)
+
+        if solver == "cg":
+            res = solve_iterative(
+                spec, cache, task, y, y_std,
+                break_percentage=break_percentage,
+                str_preconditioner=str_preconditioner,
+                flag_eigvals=flag_eigvals,
+                callback=callback,
+                save_progr_callback=self._wrap_ckpt(save_progr_callback, task,
+                                                    X, Jc, y, y_std),
+                allow_restarts=allow_restarts,
+                svd_cache=svd_cache,
+            )
+            alphas_psd = res.alphas
+            num_iters, resid = res.num_iters, res.resid
+            inducing = res.inducing_pts_idxs
+            info_solver = dict(res.info, cache_build_s=cache_build_s)
+            if not res.is_conv:
+                log.warning(
+                    "Iterative solver did not converge; continuing with the "
+                    "unconverged model (accuracy will likely be bad).")
+
+        elif solver == "cg_cholesky":
+            # standalone matrix-free pivoted-Cholesky PCG
+            # (reference iterative_cholesky.py:53-74)
+            k = int((break_percentage or 0.1) * cache.n)
+            t0 = time.perf_counter()
+            fac, info_chol = pivoted_cholesky(spec, cache, max_rank=k)
+            P = pc.woodbury_from_factor(fac.L, CG_LAM)
+            del fac
+            result = pcg(
+                lambda v: knl.matvec_psd(cache, v),
+                torch.as_tensor(y, dtype=torch.float64, device=self.device),
+                precon=P, tol=float(task.get("solver_tol", 1e-4)),
+            )
+            if not result.converged:
+                raise RuntimeError("cg_cholesky did not converge")
+            alphas_psd = result.x
+            num_iters, resid = result.num_iters, result.resid
+            info_solver = {
+                **info_chol,
+                "is_conv": result.converged,
+                "total_time_cg": result.time_s,
+                "total_time_solve": time.perf_counter() - t0,
+            }
+            del P
         del cache
-        info_solver = dict(res.info, cache_build_s=cache_build_s)
         self.last_info = info_solver
-        if not res.is_conv:
-            log.warning(
-                "Iterative solver did not converge; continuing with the "
-                "unconverged model (accuracy will likely be bad).")
 
         t_model = time.perf_counter()
         # model boundary: reference sign convention
-        alphas_F_ref = -res.alphas
+        alphas_F_ref = -alphas_psd
         X_np, Jc_np = X.cpu().numpy(), Jc.cpu().numpy()
         model = self.create_model(
             task, solver, X_np, Jc_np, y_std, alphas_F_ref,
-            solver_resid=res.resid, solver_iters=res.num_iters,
+            solver_resid=resid, solver_iters=num_iters,
             norm_y_train=float(np.linalg.norm(y)),
-            inducing_pts_idxs=res.inducing_pts_idxs,
+            inducing_pts_idxs=inducing,
         )
         model.update(
             {k: v for k, v in info_solver.items()
@@ -175,6 +227,8 @@ class Trainer:
 
         model["finalize_s"] = time.perf_counter() - t_model
         log.info("model finalize: %.2fs", model["finalize_s"])
+        if self.return_K and K_dense is not None:
+            return model, K_dense, alphas_psd
         return model
 
     # -- model record ------------------------------------------------------

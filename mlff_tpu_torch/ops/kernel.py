@@ -15,10 +15,12 @@ base_p = 5 exp(-n_p / sig) / (3 sig^4).
 The pairwise distance matrix, its exponential and the (1 + dist) weight are
 computed once per solve (``KernelCache``); each CG iteration is then three
 (N, M) x (M, D) f64 products (cuBLAS DGEMM on the card) plus elementwise
-work.  Not in this module yet (each raises NotImplementedError naming its
-ROADMAP item): the on-the-fly tiled matvec, the square all-pairs layout, the
-large-D compressed column paths, energy constraints, and the mixed/ozaki
-precision engines.
+work.  Dense assembly (``assemble_block``, ``assemble_full``), the kernel
+diagonal and single columns serve the pivoted-Cholesky, eigenvector and
+analytic solvers.  Not in this module yet (each raises NotImplementedError
+naming its ROADMAP item): the on-the-fly tiled matvec, the square all-pairs
+layout, the large-D compressed column paths, energy constraints, and the
+mixed/ozaki precision engines.
 """
 
 from __future__ import annotations
@@ -282,7 +284,7 @@ def assemble_columns(
     if len(np.unique(col_idxs)) != len(col_idxs):
         raise ValueError("duplicate column indices")
     T = spec.dim_i
-    if spec.dim * T * 8 * max(4, cache.n_perms) > _INFLATION_BUDGET:
+    if _is_large_D(spec, cache):
         raise NotImplementedError(
             "large-D column assembly (compressed / square paths) is ROADMAP "
             "module item 10")
@@ -298,3 +300,151 @@ def assemble_columns(
         T, cache, torch.as_tensor(grp_pt, device=dev),
         torch.as_tensor(grp_t, device=dev), tile,
         torch.as_tensor(flat_valid, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# Dense assembly (tiled), diagonal and single columns
+# ---------------------------------------------------------------------------
+
+
+def _is_large_D(spec: DescriptorSpec, cache: KernelCache) -> bool:
+    """The JAX package's routing rule: above this Jacobian-inflation size it
+    takes its compressed (inflation-free) paths."""
+    return spec.dim * spec.dim_i * 8 * max(4, cache.n_perms) > _INFLATION_BUDGET
+
+
+def _matern_weights(delta: torch.Tensor, sig: float):
+    """(base, c_iso) over the last axis of ``delta``: the two scalar weights
+    of the Matern-5/2 Hessian block, base = 5 exp(-n/sig) / (3 sig^4) and
+    c_iso = (sig^2 + sig n) base with n = sqrt(5) ||delta||."""
+    nrm = SQRT5 * torch.linalg.norm(delta, dim=-1)
+    base = (5.0 / (3.0 * sig**4)) * torch.exp(-nrm / sig)
+    return base, (sig**2 + sig * nrm) * base
+
+
+def assemble_block(
+    spec_dim_i: int,
+    cache: KernelCache,
+    I_idx: torch.Tensor,
+    J_idx: torch.Tensor,
+) -> torch.Tensor:
+    """Dense PSD kernel block between training-point sets I (rows) and J
+    (cols): returns (|I|*3A, |J|*3A).  No ridge term.
+
+    Mirrors the reference worker math (train.py:150-236), batched over pairs
+    and permutations in one einsum chain.
+    """
+    X_I = cache.X[I_idx]                              # (B, D)
+    Jf_I = _inflate_full(cache.Jc[I_idx], cache.S)    # (B, D, T)
+    X_J = cache.X[J_idx][:, cache.P_idx]              # (C, P, D)
+    Jf_J = _inflate_full(cache.Jc[J_idx], cache.S)    # (C, D, T)
+    Jf_Jp = Jf_J[:, cache.P_idx, :]                   # (C, P, D, T) row-permuted
+
+    delta = X_I[:, None, None, :] - X_J[None]         # (B, C, P, D)
+    base, c_iso = _matern_weights(delta, cache.sig)   # (B, C, P)
+
+    u = torch.einsum("bcpd,cpdt->bcpt", delta, Jf_Jp)       # (B, C, P, T)
+    v1 = torch.einsum("bcpd,bds->bcps", delta, Jf_I)        # (B, C, P, T)
+    # the perm axis is contracted as a batched product: a fused
+    # three-operand einsum would form a (B, C, P, T, T) tensor
+    rank = torch.einsum("bcps,bcpt->bcst", base[..., None] * v1, u)
+    W = torch.einsum("bcp,cpdt->bcdt", c_iso, Jf_Jp)        # (B, C, D, T)
+    iso = torch.einsum("bds,bcdt->bcst", Jf_I, W)           # (B, C, T, T)
+
+    blk = iso - 5.0 * rank                                  # PSD convention
+    B, C, T = I_idx.shape[0], J_idx.shape[0], spec_dim_i
+    return blk.permute(0, 2, 1, 3).reshape(B * T, C * T)
+
+
+def assemble_full(
+    spec: DescriptorSpec,
+    cache: KernelCache,
+    tile: int = 32,
+    add_ridge: float | None = None,
+) -> torch.Tensor:
+    """Full dense PSD kernel matrix (n, n) on the cache's device, assembled
+    in row tiles.  Equivalent to -1 * reference _assemble_kernel_mat with all
+    columns (train.py:1121-1308).  ``add_ridge`` optionally adds c*I."""
+    N, T = cache.n_train, spec.dim_i
+    all_idx = torch.arange(N, device=cache.device)
+    K = torch.empty((N * T, N * T), dtype=cache.X.dtype, device=cache.device)
+    for start in range(0, N, tile):
+        I_idx = all_idx[start:start + tile]
+        K[start * T:(start + tile) * T] = assemble_block(T, cache, I_idx,
+                                                         all_idx)
+    if add_ridge is not None:
+        K.diagonal().add_(add_ridge)
+    return K
+
+
+def _point_block_cols(spec_dim_i: int, cache: KernelCache,
+                      j: torch.Tensor) -> torch.Tensor:
+    """All-row kernel block for a single training point j, given as a (1,)
+    index tensor: (n, 3A)."""
+    return assemble_block(
+        spec_dim_i, cache, torch.arange(cache.n_train, device=cache.device), j)
+
+
+def kernel_diag(spec_dim_i: int, cache: KernelCache) -> torch.Tensor:
+    """diag(K) (n,), PSD convention, no ridge (mirrors reference
+    iterative_cholesky.py:241-373, which returns the negated = PSD diagonal).
+
+    The (i, i) blocks go through the arithmetic of ``assemble_block``,
+    batched over points in chunks and reduced to their diagonals before any
+    (T, T) block is formed."""
+    N = cache.n_train
+    P, D = cache.P_idx.shape
+    chunk = max(1, int(1e8) // (P * D * spec_dim_i * 8))
+    out = torch.empty((N, spec_dim_i), dtype=cache.X.dtype,
+                      device=cache.device)
+    for start in range(0, N, chunk):
+        X_i = cache.X[start:start + chunk]                   # (B, D)
+        Jf = _inflate_full(cache.Jc[start:start + chunk], cache.S)  # (B, D, T)
+        Jf_p = Jf[:, cache.P_idx, :]                         # (B, P, D, T)
+        delta = X_i[:, None, :] - X_i[:, cache.P_idx]        # (B, P, D)
+        base, c_iso = _matern_weights(delta, cache.sig)      # (B, P)
+        u = torch.einsum("bpd,bpdt->bpt", delta, Jf_p)
+        v1 = torch.einsum("bpd,bdt->bpt", delta, Jf)
+        rank = torch.sum(base[..., None] * v1 * u, dim=1)    # (B, T)
+        W = torch.einsum("bp,bpdt->bdt", c_iso, Jf_p)
+        iso = torch.sum(Jf * W, dim=1)                       # (B, T)
+        out[start:start + chunk] = iso - 5.0 * rank
+    return out.reshape(-1)
+
+
+def kernel_diag_any(spec: DescriptorSpec, cache: KernelCache) -> torch.Tensor:
+    """diag(K): the inflating path for small D (same routing rule as
+    ``assemble_columns``)."""
+    if _is_large_D(spec, cache):
+        raise NotImplementedError(
+            "the large-D compressed kernel diagonal is ROADMAP module item 10")
+    return kernel_diag(spec.dim_i, cache)
+
+
+def kernel_column(spec_dim_i: int, cache: KernelCache, col) -> torch.Tensor:
+    """Single column of (K + lam*I), (n,): direct assembly of only the
+    requested partial, O(n * P * D).
+
+    ``col`` is an int or an integer tensor of one element on the cache's
+    device.  With a tensor nothing is read back to the host, so a loop that
+    picks its next column on the device (the greedy pivoted Cholesky) queues
+    its steps without a round trip.  The JAX package assembles the owning
+    point's whole (n, 3A) block and takes one column of it; the column is
+    the same."""
+    T = spec_dim_i
+    dev = cache.device
+    col = torch.as_tensor(col, dtype=torch.int64, device=dev).reshape(1)
+    j = col // T
+    t = col % T
+    b, x = t // 3, t % 3
+    Pj = cache.P_idx                                         # (P, D)
+    jcol = (cache.Jc[j][0][Pj].index_select(2, x)[..., 0]
+            * cache.S[Pj].index_select(2, b)[..., 0])        # (P, D)
+    Xt_j = cache.X[j][0][Pj]                                 # (P, D)
+    delta = cache.X[:, None, :] - Xt_j[None]                 # (N, P, D)
+    base, c_iso = _matern_weights(delta, cache.sig)          # (N, P)
+    u = torch.einsum("npd,pd->np", delta, jcol)              # (N, P)
+    G = c_iso @ jcol - 5.0 * torch.einsum("np,npd->nd", base * u, delta)
+    out = vec_dot_d_desc(cache.Jc, cache.S, G).reshape(-1)   # (n,)
+    out[col] += cache.lam
+    return out

@@ -17,9 +17,17 @@ PyTorch port of the main slice of ``mlff_tpu.solvers.preconditioners``
     (n, m) passes of every apply run through the hand-written CUDA kernels
     of ``ops/df64_gemv.py``.
 
+  * ``woodbury_from_factor``: the split apply of P = L L^T + lam I for any
+    low-rank factor L (the pivoted-Cholesky family, the eigenvector family),
+  * ``method="chol"``: the fused-Cholesky Nystrom path with its escalating
+    jitter ladders, applied through the fused T (kept for A/B comparison),
+  * the dense small-n diagnostics: ``eigvec_preconditioner`` (three
+    variants), ``rank_k_leverage_scores`` and ``jacobi_preconditioner``.  The
+    dense kernel and its SVD stay on the cache's device.
+
 All builders work in the PSD convention (K + lam*I).  Not in this module yet
-(each raises NotImplementedError naming its ROADMAP item): the fused-Cholesky
-method, energy constraints, and the ozaki apply and factor-build engines.
+(each raises NotImplementedError naming its ROADMAP item): energy
+constraints, and the ozaki apply and factor-build engines.
 """
 
 from __future__ import annotations
@@ -63,6 +71,42 @@ class _StageTimer:
     def report(self, what: str) -> None:
         log.info("%s: %s", what,
                  "  ".join(f"{k} {v:.2f}s" for k, v in self.stages.items()))
+
+
+@dataclass
+class WoodburyPreconditioner:
+    """P = L L^T + lam I with a precomputed fused T = chol(lam I + L^T L)^-1 L^T:
+
+        P^-1 v = lam^-1 (v - T^T (T v))
+
+    two (k, n) GEMVs and an axpy (reference iterative_cholesky.py:141-148).
+    Only ``nystrom_preconditioner(method="chol")`` builds it; every other
+    build function applies through the split factors (see
+    ``WoodburySplitPreconditioner``).  T is padded with zero rows to a
+    multiple of 128, which is inert in the apply."""
+
+    T: torch.Tensor    # (k, n)
+    lam: float
+    info: dict
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        return woodbury_apply(self, v)
+
+
+def woodbury_apply(P: WoodburyPreconditioner, v: torch.Tensor) -> torch.Tensor:
+    """P^-1 v = lam^-1 (v - T^T (T v))."""
+    return (v - P.T.T @ (P.T @ v)) / P.lam
+
+
+def _pad_factor_rows(T: torch.Tensor) -> torch.Tensor:
+    """Pad (k, n) -> (ceil(k/128)*128, n) with zero rows (inert in apply)."""
+    k = T.shape[0]
+    k_pad = -(-k // 128) * 128
+    if k_pad == k:
+        return T
+    Tp = torch.zeros((k_pad, T.shape[1]), dtype=T.dtype, device=T.device)
+    Tp[:k] = T
+    return Tp
 
 
 @dataclass
@@ -344,6 +388,44 @@ def _host_inner_isqrt(inner: np.ndarray, lam: float, host_decomp: str):
     raise np.linalg.LinAlgError("inner chol failed to regularize")
 
 
+def cho_factor_stable(M: np.ndarray, max_tries: int = 20) -> np.ndarray:
+    """Lower Cholesky factor with escalating diagonal regularization.
+
+    Mirrors the reference's `_cho_factor_stable`
+    (iterative_solver.py:554-618): shift the diagonal by the (negated)
+    smallest eigenvalue when needed, then escalate jitter ~10x per failure.
+    Host LAPACK: M is m x m.
+    """
+    M = np.asarray(M)
+    m = M.shape[0]
+    lo_eig = scipy.linalg.eigh(M, eigvals_only=True, subset_by_index=(0, 0))[0]
+    shift = 1e-15 if lo_eig <= 0 else -1e-15
+    A = M + shift * np.eye(m)
+    jitter = 0.0
+    for i in range(max_tries):
+        try:
+            return scipy.linalg.cholesky(A + jitter * np.eye(m), lower=True)
+        except scipy.linalg.LinAlgError:
+            jitter = max(abs(lo_eig) * 2.0, 1e-14) * (10.0**i)
+            log.warning("cho_factor_stable: escalating jitter to %.2e", jitter)
+    raise np.linalg.LinAlgError("cho_factor_stable failed to regularize matrix")
+
+
+def woodbury_from_factor(L: torch.Tensor, lam: float
+                         ) -> WoodburySplitPreconditioner:
+    """The Woodbury apply operator of a low-rank factor L (n, k):
+    P^-1 = lam^-1 (I - L (lam I + L^T L)^-1 L^T), applied through the split
+    factors B = L and W2 = chol(lam I + L^T L)^-T (host LAPACK on the (k, k)
+    Gram).  The split apply never freezes a triangular solve's noise into a
+    (k, n) product: see WoodburySplitPreconditioner."""
+    inner = _host_sym(L.T @ L)
+    W2 = torch.as_tensor(_host_inner_isqrt(inner, lam, "chol"),
+                         dtype=torch.float64, device=L.device)
+    B, W2 = _pad_split(L, W2)
+    return WoodburySplitPreconditioner(B=B, W2=W2, lam=float(lam),
+                                       info={"apply_impl": "xla"})
+
+
 def _nystrom_factor_split(
     K_nm: torch.Tensor, inducing_idxs: np.ndarray, lam: float,
     rank_tol: float, host_decomp: str = "eigh",
@@ -507,6 +589,76 @@ def _nystrom_factor_split_colblocked(
     return tuple(blocks), W2, info
 
 
+def _chol_failed(info: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether a ``cholesky_ex`` broke down (``info != 0``) or what was
+    computed from its factor holds a non-finite value: the rung of a jitter
+    ladder failed.  One host read."""
+    return bool((info != 0) | ~torch.isfinite(torch.sum(out)))
+
+
+def _nystrom_factor_chol(K_nm: torch.Tensor, inducing_idxs: np.ndarray,
+                         lam: float) -> torch.Tensor:
+    """The fused-Cholesky path, T (m, n): two stages, each retried up an
+    escalating jitter ladder (8 and 14 rungs)."""
+    idxs_dev = torch.as_tensor(inducing_idxs, device=K_nm.device)
+    B = None
+    for i in range(8):
+        B, failed = _nystrom_whiten_fused(K_nm, idxs_dev, 10.0**i)
+        if not failed:
+            break
+        log.warning("nystrom whiten failed at jitter boost 1e%d; escalating", i)
+    inner = _nystrom_inner_gram(B)   # the expensive (m^2 n) Gram, once
+    G = None
+    for i in range(14):
+        # fine ladder: the retries repeat only the (m, m) factorization, and
+        # the smallest working regularization gives the best quality
+        G, failed = _chol_with_reg(inner, lam, 10.0**i)
+        if not failed:
+            break
+        if i > 4:
+            log.warning("nystrom inner chol failed at boost 1e%d; escalating",
+                        i)
+    return _trsm_fused(G, B)
+
+
+def _nystrom_whiten_fused(K_nm: torch.Tensor, idxs: torch.Tensor,
+                          boost: float):
+    """Stage 1: B = chol(K_mm + jitter)^-1 K_mn, (m, n).  Base jitter is
+    1e-10 of the spectral scale (the reference also shifts the K_mm diagonal
+    unconditionally, iterative_solver.py:576-579); ``boost`` multiplies it
+    on retries."""
+    K_mm = K_nm[idxs]
+    scale = torch.max(torch.abs(torch.diagonal(K_mm)))
+    eye = torch.eye(K_mm.shape[0], dtype=K_nm.dtype, device=K_nm.device)
+    L_mm, info = torch.linalg.cholesky_ex(K_mm + (scale * 1e-10 * boost) * eye)
+    B = torch.linalg.solve_triangular(L_mm, K_nm.T, upper=False)
+    return B, _chol_failed(info, B)
+
+
+def _nystrom_inner_gram(B: torch.Tensor) -> torch.Tensor:
+    """Stage 2a: the (m, m) Gram matrix B B^T."""
+    return B @ B.T
+
+
+def _chol_with_reg(inner: torch.Tensor, lam: float, boost: float):
+    """Stage 2b: chol(inner + reg I).  Base regularization is lam; on a
+    retry the whitened Gram's spectral scale enters at 1e-16 * boost
+    (roundoff makes the PSD Gram slightly indefinite at ~eps * ||B B^T||,
+    which for near-singular whitening exceeds lam by orders of magnitude;
+    the reference's _cho_factor_stable ladders identically,
+    iterative_solver.py:600-618)."""
+    eye = torch.eye(inner.shape[0], dtype=inner.dtype, device=inner.device)
+    scale = torch.max(torch.abs(torch.diagonal(inner)))
+    reg = lam + (scale * 1e-16 * boost if boost > 1.0 else 0.0)
+    G, info = torch.linalg.cholesky_ex(inner + reg * eye)
+    return G, _chol_failed(info, G)
+
+
+def _trsm_fused(G: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Stage 2c: T = G^-1 B."""
+    return torch.linalg.solve_triangular(G, B, upper=False)
+
+
 def _pad_colblocks(Bs: tuple, W2: torch.Tensor):
     """Zero-column-pad the last block (and W2's rows and columns) so that
     the total width is a multiple of 128 (inert in the apply)."""
@@ -537,7 +689,9 @@ def nystrom_preconditioner(
     (reference iterative_solver.py:218-254, 370-374).
 
     ``method``: 'chol_host' (Cholesky + triangular inverse on host, the
-    default) or 'eigh' (host eigendecompositions with clamping).
+    default), 'eigh' (host eigendecompositions with clamping) or 'chol' (the
+    fused-Cholesky path with jitter ladders on the device, applied through
+    a fused T in f64 whatever ``apply_impl`` says; kept for A/B comparison).
     ``apply_impl``: 'xla' names the plain f64 apply, as in the JAX package;
     'df64' the apply through the df64 CUDA kernels, with 3 components
     unless the JAX package's memory rule asks for 2.
@@ -549,9 +703,8 @@ def nystrom_preconditioner(
     if use_E_cstr:
         raise NotImplementedError(
             "energy-constrained columns are ROADMAP module item 10")
-    if method not in ("chol_host", "eigh"):
-        raise NotImplementedError(
-            f"nystrom method {method!r} is ROADMAP module item 9")
+    if method not in ("chol_host", "eigh", "chol"):
+        raise ValueError(f"unknown nystrom method {method!r}")
     if apply_impl == "ozaki" or os.environ.get("MLFF_BUILD_GEMM") == "ozaki":
         raise NotImplementedError(
             "the ozaki apply and factor-build engines are ROADMAP module "
@@ -561,6 +714,8 @@ def nystrom_preconditioner(
     inducing_idxs = np.sort(np.asarray(inducing_idxs))
     t0 = time.perf_counter()
     if block_cols is not None:
+        if method == "chol":
+            raise ValueError("nystrom method 'chol' has no column-blocked form")
         Bs, W2, info = _nystrom_factor_split_colblocked(
             spec, cache, inducing_idxs, lam, rank_tol, block_cols)
         Bs, W2 = _pad_colblocks(Bs, W2)
@@ -575,6 +730,13 @@ def nystrom_preconditioner(
     if cache.device.type == "cuda":
         torch.cuda.synchronize(cache.device)
     t1 = time.perf_counter()
+    if method == "chol":
+        T = _pad_factor_rows(_nystrom_factor_chol(K_nm, inducing_idxs, lam))
+        info = {"columns_s": t1 - t0, "apply_impl": "xla",
+                "factorization_s": time.perf_counter() - t1}
+        log.info("nystrom build (chol): columns %.2fs, factorization %.2fs",
+                 info["columns_s"], info["factorization_s"])
+        return WoodburyPreconditioner(T=T, lam=float(lam), info=info)
     B, W2, info = _nystrom_factor_split(
         K_nm, inducing_idxs, lam, rank_tol,
         host_decomp="chol" if method == "chol_host" else "eigh")
@@ -652,3 +814,108 @@ def select_by_leverage(
         p = lev / lev.sum()
         return np.sort(rng.choice(len(lev), size=k, replace=False, p=p))
     raise ValueError(strategy)
+
+
+def _guard_dense_diagnostic(name: str, n: int) -> None:
+    """The eigvec / rank-k-lev families materialize the dense K and take its
+    SVD: O(n^2) memory, O(n^3) flops.  They are small-n diagnostics
+    (reference iterative_solver.py:1110-1175, 1177-1348), capped below the
+    production operating points (n >= 30k).  The cap can be raised through
+    MLFF_TPU_DENSE_DIAG_MAX_N."""
+    max_n = int(os.environ.get("MLFF_TPU_DENSE_DIAG_MAX_N", 20_000))
+    if n > max_n:
+        raise ValueError(
+            f"{name} materializes the dense {n}x{n} kernel "
+            f"({n * n * 8 / 1e9:.1f} GB) and takes its SVD; it is a small-n "
+            f"diagnostic capped at n <= {max_n}. Use a Nystrom/Cholesky "
+            f"strategy at this size, or raise MLFF_TPU_DENSE_DIAG_MAX_N."
+        )
+
+
+def rank_k_leverage_scores(
+    spec: DescriptorSpec,
+    cache: knl.KernelCache,
+    k: int,
+) -> np.ndarray:
+    """Rank-k subspace leverage scores from a full SVD of K
+    (reference `_rank_k_leverage_scores`, iterative_solver.py:1110-1175;
+    Def. 1 of arXiv:2201.07017).  Small-n diagnostic: materializes K."""
+    _guard_dense_diagnostic("rank_k_lev_scores", cache.n)
+    U, _, _ = torch.linalg.svd(knl.assemble_full(spec, cache))
+    return torch.linalg.norm(U[:, :k], dim=1).cpu().numpy()
+
+
+def _masked_kernel(K: torch.Tensor, variant: str, T: int) -> torch.Tensor:
+    """K with the entries a variant of ``eigvec_preconditioner`` drops set
+    to zero."""
+    idx = torch.arange(K.shape[0], device=K.device)
+    if variant == "eigvec_precon":
+        return K
+    if variant == "eigvec_precon_block_diagonal":
+        point = idx // T
+        keep = point[:, None] == point[None, :]
+        return torch.where(keep, K, 0.0)
+    if variant == "eigvec_precon_atomic_interactions":
+        # zero entries below threshold except 3x3 atomic diagonal blocks
+        absK = torch.abs(K)
+        delete = absK < 1.0 * absK.max()
+        atom = (idx % T) // 3
+        delete &= atom[:, None] != atom[None, :]
+        if not torch.equal(delete, delete.T):
+            raise AssertionError("only symmetric deletes allowed")
+        return torch.where(delete, 0.0, K)
+    raise NotImplementedError(variant)
+
+
+def eigvec_preconditioner(
+    spec: DescriptorSpec,
+    cache: knl.KernelCache,
+    k: int,
+    lam: float,
+    variant: str = "eigvec_precon",
+    svd_cache: dict | None = None,
+    use_E_cstr: bool = False,
+) -> WoodburySplitPreconditioner:
+    """Truncated-SVD preconditioner P = U_k S_k U_k^T + lam I.
+
+    Variants (reference iterative_solver.py:1238-1268):
+      * 'eigvec_precon': plain truncated SVD of K,
+      * 'eigvec_precon_block_diagonal': per-training-point block-diagonal
+        K (3A x 3A blocks) before the SVD,
+      * 'eigvec_precon_atomic_interactions': keep only 3x3 atomic
+        self-interaction blocks.
+    ``svd_cache`` (optional dict) memoizes (U, s), as tensors on the cache's
+    device, across k-sweeps the way the reference's glob_U/glob_s module
+    globals do (iterative_solver.py:1291-1303), but explicitly, per caller.
+
+    The decomposition is an SVD, not ``eigh``: the masked variants can be
+    indefinite, and L = U_k sqrt(s_k) uses singular values.  As in the JAX
+    package, 'eigvec_precon_block_diagonal' keeps the per-point diagonal
+    blocks (the reference's version zeroes the entire matrix,
+    iterative_solver.py:1259-1262).
+    """
+    if use_E_cstr:
+        raise NotImplementedError(
+            "the energy-constrained eigenvector preconditioner is ROADMAP "
+            "module item 10")
+    key = ("svd", variant, use_E_cstr)
+    if svd_cache is not None and key in svd_cache:
+        U, s = svd_cache[key]
+    else:
+        _guard_dense_diagnostic(variant, cache.n)
+        K = _masked_kernel(knl.assemble_full(spec, cache), variant, spec.dim_i)
+        U, s, _ = torch.linalg.svd(K)
+        if svd_cache is not None:
+            svd_cache[key] = (U, s)
+    L = U[:, :k] * torch.sqrt(s[:k])[None, :]
+    return woodbury_from_factor(L, lam)
+
+
+def jacobi_preconditioner(diag: torch.Tensor, lam: float):
+    """Plain diagonal (Jacobi) preconditioner: a cheap baseline."""
+    d = diag + lam
+
+    def apply(v):
+        return v / d
+
+    return apply

@@ -19,6 +19,10 @@ relative, and energies on the scale of the contraction's output before the
 integration constant c is added.  The df64 passes are held to 3e-12
 relative, the tolerance of ``tests/test_df64.py``; the df64 training, like
 ``chip_smoke.py``'s reference phase, to +-2 iterations and 1e-4 * max|F|.
+The greedy pivoted Cholesky on the card is held to the port's own CPU run on
+a random geometry (equal pivots, L to 1e-10, below the rank where
+translation ties appear, see ``tests/test_torch_zoo.py``) and queues its
+steps without a host read.
 """
 
 import numpy as np
@@ -36,6 +40,8 @@ from mlff_tpu_torch.ops import df64  # noqa: E402
 from mlff_tpu_torch.ops import df64_gemv  # noqa: E402
 from mlff_tpu_torch.ops import fused_predict as fp  # noqa: E402
 from mlff_tpu_torch.ops import kernel as knl  # noqa: E402
+from mlff_tpu_torch.solvers import iterative as tit  # noqa: E402
+from mlff_tpu_torch.solvers import pivoted_cholesky as pch  # noqa: E402
 from mlff_tpu_torch.tools.time_fused_predict import operands  # noqa: E402
 
 SIG = 10.0
@@ -261,3 +267,63 @@ def test_df64_training_on_card_matches_cpu(small):
     F_g = Predictor(m_gpu).predict(ds["R"][held])[1]
     F_c = Predictor(m_cpu, device="cpu").predict(ds["R"][held])[1]
     assert np.abs(F_g - F_c).max() <= SOLVE_TOL * np.abs(F_c).max()
+
+
+def _random_caches(n_atoms=5, n_train=14, seed=0):
+    """The random geometry of tests/test_torch_zoo.py on the card and on
+    the CPU."""
+    R = np.random.default_rng(seed).normal(size=(n_train, n_atoms, 3)) * 1.5
+    spec = dsc.make_spec(n_atoms)
+    caches = []
+    for dev in ("cuda", "cpu"):
+        X, Jc = dsc.descriptors_from_R(spec, torch.as_tensor(R, device=dev))
+        caches.append(knl.build_cache(
+            X, Jc, dsc.incidence_matrix(spec, device=dev),
+            dsc.desc_perms(np.arange(n_atoms)[None, :]), SIG, 1e-10,
+            device=dev))
+    return spec, caches[0], caches[1]
+
+
+def test_greedy_pivoted_cholesky_on_card_matches_cpu(small):
+    spec, c_gpu, c_cpu = _random_caches()
+    res_g, info_g = pch.pivoted_cholesky(spec, c_gpu, 40)
+    res_c, info_c = pch.pivoted_cholesky(spec, c_cpu, 40)
+    assert res_g.L.is_cuda and res_g.pivots.is_cuda
+    np.testing.assert_array_equal(info_g["pivots"], info_c["pivots"])
+    assert _rel_err(res_g.L.cpu(), res_c.L) <= RTOL
+    assert _rel_err(res_g.remaining_diag.cpu(), res_c.remaining_diag) <= RTOL
+    assert info_g["min_pivot"] > 0
+
+
+def test_greedy_loop_reads_nothing_back_per_step(small):
+    """The loop runs under PyTorch's synchronization debug mode, which
+    raises on an operation that waits for the device (a ``.item()``, a
+    ``bool()`` of a device tensor, a copy to the host)."""
+    spec, c_gpu, _ = _random_caches()
+    diag = knl.kernel_diag(spec.dim_i, c_gpu)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = pch._pivoted_cholesky_device(spec.dim_i, c_gpu, diag, 24)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(res.pivot_values.min()) > 0
+
+
+def test_df64_apply_of_a_cholesky_factor_launches_both_kernels(small):
+    """apply_impl="df64" with str_preconditioner="cholesky": the factor's
+    apply runs the two df64 kernels and agrees with the f64 apply."""
+    spec, c_gpu, _ = _random_caches()
+    v = torch.as_tensor(np.random.default_rng(4).normal(size=c_gpu.n),
+                        device="cuda")
+    P64, _, _ = tit.build_preconditioner(
+        spec, c_gpu, "cholesky", 40, 1e-10, np.random.default_rng(7))
+    Pdf, _, _ = tit.build_preconditioner(
+        spec, c_gpu, "cholesky", 40, 1e-10, np.random.default_rng(7),
+        task={"apply_impl": "df64"})
+    before = (df64_gemv.df64_bt_v.launches, df64_gemv.df64_b_x.launches)
+    got = Pdf(v)
+    torch.cuda.synchronize()
+    assert df64_gemv.df64_bt_v.launches == before[0] + 1
+    assert df64_gemv.df64_b_x.launches == before[1] + 1
+    assert _rel_err(got, P64(v)) <= DF64_RTOL
