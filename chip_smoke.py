@@ -47,6 +47,31 @@ Phases, each printing one JSON line of its own numbers:
              the preconditioned spectrum (flag_eigvals), a restarted solve
              from 2 inducing points, nystrom_method="chol", and the analytic
              solver, whose forces every converged cg model must match
+  train_otf      the train phase's task with the on-the-fly matvec forced
+                 (pairwise=False): 285 +- 2 iterations, held-out force MAE
+                 within 1e-4 of the train phase's, one OTF matvec against
+                 the cached one within 1e-12, ms per iteration beside the
+                 cached training's
+  train_157k     calibrated ethanol at N_train = 5833 (n = 157,491, k =
+                 2368): above the 3 GB cache switch, so the Trainer takes
+                 the OTF matvec; converged within 1300 iterations; one OTF
+                 matvec's time beside one cached matvec's at that n
+  train_aspirin  calibrated aspirin, N_train = 250 (n = 15,750, D = 210,
+                 k = 1653): within 2400 iterations; then fast prediction
+                 (the kernel's wide route) against the f64 Predictor
+  train_catcher  calibrated catcher, N_train = 119 (n = 31,416, A = 88,
+                 D = 3828, k = 3298): the square matvec, within 4650
+                 iterations; fast prediction against f64
+  nanotube       N_train = 14 (n = 15,540, D = 68,265): the cache's square
+                 fields, 1631 columns by the square assembly against a
+                 sample by the compressed one (1e-10), the compressed
+                 diagonal against them, a solve capped at 200 iterations
+                 whose residual is finite and lower after the last chunk of
+                 50 iterations than after the first, fast prediction against
+                 f64
+The kernel phase also holds the fused kernel's wide route (D > 129) to its
+plain version at D = 130, 210, 3828 and 68,265 (1e-12, same bits twice)
+and times it at B = 512 at the aspirin, catcher and full-row shapes.
 
 Then the kernel table as one JSON line, the card's name and power limit as
 nvidia-smi reports them, and as the last line
@@ -107,6 +132,33 @@ ZOO_CONTROLS = ("inverse_lev", "eigvec_precon_block_diagonal",
 # cg models against the analytic model on training geometries
 # (tests/test_train_e2e.py::test_cg_matches_analytic)
 ANALYTIC_ATOL_REL = 5e-3
+# wide route of the fused kernel: (D, molecule and training geometries) of
+# the checked cases; None: random operands of a width no molecule has
+WIDE_CHECKED = ((130, None), (210, ("aspirin", 250)),
+                (3828, ("catcher", 119)), (68265, ("nanotube", 14)))
+# the wide kernel against its plain version: 1e-12 relative, f64 sums in
+# another order (the narrow widths read ~4e-15)
+WIDE_RTOL = 1e-12
+# timed at B = 512: (label, operands, M, D); "full_*" are the full row's
+# M = 6996 at a wide width (random operands at D = 3828: 6996 catcher
+# geometries would take the host ~10 s to make)
+WIDE_TIMED = (("aspirin", ("aspirin", 250), 1500, 210),
+              ("catcher", ("catcher", 119), 119, 3828),
+              ("full_210", ("aspirin", 1166), 6996, 210),
+              ("full_3828", None, 6996, 3828))
+# the large systems: (phase, molecule, N_train, k, iteration limit).  The
+# limits: 157k, 841 iterations of the JAX package's ozaki OTF solve on a
+# TPU + 50% (no f64 record); aspirin and catcher, the JAX package's counts
+# (data/synthetic.py calibration: 1826, 3576) + 30%
+LARGE = (("train_157k", "ethanol", 5833, 2368, 1300),
+         ("train_aspirin", "aspirin", 250, 1653, 2400),
+         ("train_catcher", "catcher", 119, 3298, 4650))
+N_HELD_LARGE = 60
+OTF_ITERS, OTF_ITERS_SLACK = 285, 2
+OTF_MAE_RTOL = 1e-4
+NANOTUBE_N_TRAIN, NANOTUBE_K, NANOTUBE_MAXITER = 14, 1631, 200
+NANOTUBE_SAMPLE_EVERY = 26     # every 26th square column against compressed
+SQUARE_RTOL = 1e-10
 
 
 def emit(phase: str, **fields) -> None:
@@ -225,6 +277,347 @@ def fused_predict_rows(torch, Xq, Xqt, wt, Xq_held) -> dict:
                  f"{row['ms']} ms against {row['bound_ms']} ms")
         rows[label] = row
     return rows
+
+
+def random_operands(torch, B: int, M: int, D: int, seed: int):
+    """(Xq (B, D), Xqt (M, D), wt (M, D)) on the card, seeded: descriptors in
+    [0.05, 0.15), standard normal cotangents."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def uniform(*shape):
+        return 0.05 + 0.1 * torch.rand(shape, generator=gen,
+                                       dtype=torch.float64, device="cuda")
+
+    return uniform(B, D), uniform(M, D), torch.randn(
+        (M, D), generator=gen, dtype=torch.float64, device="cuda")
+
+
+def fused_wide_rows(torch) -> dict:
+    """The fused kernel's wide route (D > 129) against its plain version at
+    every width of WIDE_CHECKED, with B = 7 and a full batch and M ragged
+    against its 16-row steps, twice for the same bits; then timed in turns
+    with its plain version at the shapes of WIDE_TIMED, and at B = 1.
+    Returns {label: row} of the timed rows."""
+    from mlff_tpu_torch.ops import fused_predict as fp
+    from mlff_tpu_torch.tools.time_fused_predict import operands
+    from mlff_tpu_torch.utils.timing import time_in_turns
+
+    for D, source in WIDE_CHECKED:
+        if source is None:
+            Xq, Xqt, wt = random_operands(torch, 513, 301, D, D)
+        else:
+            Xq, Xqt, wt = operands(*source, 513 if D < 68265 else 60, "cuda")
+        M = Xqt.shape[0] - 3 if Xqt.shape[0] > 64 else Xqt.shape[0]
+        for B in (7, Xq.shape[0]):
+            args = (Xq[:B].contiguous(), Xqt[:M].contiguous(),
+                    wt[:M].contiguous(), SIG)
+            F_k, E_k = fp.desc_forces_fused(*args)
+            F_2, E_2 = fp.desc_forces_fused(*args)
+            F_r, E_r = fp.desc_forces_fused_ref(*args)
+            torch.cuda.synchronize()
+            row = {"shape": f"wide_{D}", "B": B, "M": M, "D": D,
+                   "max_abs_err_F": float((F_k - F_r).abs().max()),
+                   "rel_err_F": rel_err(F_k, F_r),
+                   "rel_err_E": rel_err(E_k, E_r),
+                   "same_bits_twice": bool(torch.equal(F_k, F_2)
+                                           and torch.equal(E_k, E_2))}
+            row["ok"] = bool(row["rel_err_F"] <= WIDE_RTOL
+                             and row["rel_err_E"] <= WIDE_RTOL
+                             and row["same_bits_twice"]
+                             and torch.isfinite(F_k).all())
+            emit("kernel", name="fused_predict", route="wide", **row)
+            if not row["ok"]:
+                fail(f"fused_predict's wide route disagrees with its plain "
+                     f"version or with itself (D = {D}, B = {B})")
+        del Xq, Xqt, wt
+
+    rows = {}
+    for label, source, M, D in WIDE_TIMED:
+        if source is None:
+            Xq, Xqt, wt = random_operands(torch, 512, M, D, 7)
+        else:
+            Xq, Xqt, wt = operands(*source, 512, "cuda")
+        if tuple(Xqt.shape) != (M, D):
+            fail(f"wide operands {label}: {tuple(Xqt.shape)}, not {(M, D)}")
+        args, one = (Xq, Xqt, wt, SIG), (Xq[:1].contiguous(), Xqt, wt, SIG)
+        turns = time_in_turns(torch, {
+            "plain": lambda: fp.desc_forces_fused_ref(*args),
+            "kernel": lambda: fp.desc_forces_fused(*args)},
+            lead_ms=FUSED_LEAD_MS)
+        ms_one = time_in_turns(torch, {
+            "kernel": lambda: fp.desc_forces_fused(*one)},
+            lead_ms=FUSED_LEAD_MS)["kernel"][0]
+        F_k, _ = fp.desc_forces_fused(*args)
+        F_r, _ = fp.desc_forces_fused_ref(*args)
+        bound_s, bound_by = fp.bound_seconds(512, M, D, F64_PEAK, MEM_RATE)
+        row = {"shape": label, "B": 512, "M": M, "D": D,
+               "max_abs_err_F": float((F_k - F_r).abs().max()),
+               "rel_err_F": rel_err(F_k, F_r),
+               "ms": turns["kernel"][0], "ms_spread": turns["kernel"][1],
+               "plain_ms": turns["plain"][0],
+               "plain_ms_spread": turns["plain"][1],
+               "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+               "ms_B1": ms_one, "plan": str(fp.plan(512, M, D, fp._sm_count(
+                   torch.cuda.current_device())))}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        emit("kernel", name="fused_predict", route="wide", **row)
+        if row["rel_err_F"] > WIDE_RTOL:
+            fail(f"fused_predict's wide route disagrees with its plain "
+                 f"version ({label})")
+        if row["share_of_bound"] > 1.0:
+            fail(f"fused_predict ({label}) timed below its bound: "
+                 f"{row['ms']} ms against {row['bound_ms']} ms")
+        rows[label] = row
+        del Xq, Xqt, wt, args, one, F_k, F_r
+    torch.cuda.empty_cache()
+    return rows
+
+
+def fast_against_f64(model, R, dev):
+    """Predictor(fast=True) against the f64 Predictor on geometries R:
+    (ok, max |dF|, max |dE|, max |F|, fast forces)."""
+    from mlff_tpu_torch.models.predict import Predictor
+
+    E_f, F_f = Predictor(model, fast=True, device=dev).predict(R)
+    E_x, F_x = Predictor(model, device=dev).predict(R)
+    okF, errF = close(F_f, F_x, np.abs(F_x).max())
+    E_c = E_x - model["c"]
+    okE, errE = close(E_f - model["c"], E_c, np.abs(E_c).max())
+    ok = okF and okE and bool(np.all(np.isfinite(F_f))) \
+        and F_f.shape == F_x.shape
+    return ok, errF, errE, float(np.abs(F_x).max()), F_f
+
+
+def train_otf(torch, dev, task, ds, held, cached_row, mae_ref) -> int:
+    """The train phase's task with the on-the-fly matvec forced
+    (pairwise=False): iterations and held-out forces against the cached
+    training's, and one OTF matvec against the cached one.  Returns the
+    fused kernel's launches in the phase."""
+    from mlff_tpu_torch.models.gdml import Trainer
+    from mlff_tpu_torch.models.predict import Predictor
+    from mlff_tpu_torch.ops import fused_predict as fp
+    from mlff_tpu_torch.ops import kernel as knl
+
+    tr = Trainer(device=dev)
+    tr._pairwise_fits = lambda n_train, n_perms: False
+    fp.desc_forces_fused.launches = 0
+    t0 = time.perf_counter()
+    m = tr.train(task, n_columns=K_COLUMNS, str_preconditioner="lev_random")
+    train_s = time.perf_counter() - t0
+    info = tr.last_info
+    _, F = Predictor(m, fast=True, device=dev).predict(ds["R"][held])
+    launches = fp.desc_forces_fused.launches
+    mae = float(np.abs(F - ds["F"][held]).mean())
+    iters = int(m["solver_iters"])
+
+    spec, S, X, Jc, P_idx = tr.build_kernel_inputs(task)
+    cached = knl.build_cache(X, Jc, S, P_idx, SIG, 1e-10, device=dev)
+    otf = knl.build_cache(X, Jc, S, P_idx, SIG, 1e-10, pairwise=False,
+                          device=dev)
+    v = torch.randn(cached.n, generator=torch.Generator(
+        device=dev).manual_seed(4), dtype=torch.float64, device=dev)
+    matvec_err = rel_err(knl.matvec_psd(otf, v), knl.matvec_psd(cached, v))
+    row = dict(n=cached.n, k=K_COLUMNS, converged=bool(m["is_conv"]),
+               iters=iters, cached_iters=cached_row["iters"],
+               cg_s=info["total_time_cg"], train_s=train_s,
+               ms_per_iter=info["total_time_cg"] * 1e3 / max(iters, 1),
+               ms_per_iter_cached=cached_row["cg_s"] * 1e3
+               / max(cached_row["iters"], 1),
+               matvec_otf_ms=time_ms(torch, lambda: knl.matvec_psd(otf, v)),
+               matvec_cached_ms=time_ms(torch,
+                                        lambda: knl.matvec_psd(cached, v)),
+               otf_tile=knl._otf_tile(cached.n_train, cached.Xqt.shape[0]),
+               rel_err_matvec_vs_cached=matvec_err,
+               force_mae_held_out=mae, force_mae_held_out_cached=mae_ref,
+               launches=launches)
+    emit("train_otf", **row)
+    del cached, otf
+    if not m["is_conv"] or abs(iters - OTF_ITERS) > OTF_ITERS_SLACK:
+        fail(f"train_otf: converged={m['is_conv']} in {iters} PCG iterations "
+             f"(want {OTF_ITERS} +- {OTF_ITERS_SLACK})")
+    if not abs(mae / mae_ref - 1.0) <= OTF_MAE_RTOL:
+        fail(f"train_otf: held-out force MAE {mae} against {mae_ref}")
+    if not matvec_err <= 1e-12:
+        fail(f"train_otf: OTF matvec {matvec_err} from the cached one")
+    if launches == 0:
+        fail("train_otf: Predictor(fast=True) did not launch fused_predict")
+    return launches
+
+
+def large_system(torch, dev, phase, molecule, n_train, k, limit) -> int:
+    """Train a large system to tol 1e-4 with lev_random, then predict its
+    60 held-out geometries fast and in f64.  train_157k is above the 3 GB
+    cache switch (the OTF matvec) and also times one OTF matvec beside one
+    cached matvec at its n; train_catcher takes the square matvec.  Returns
+    the fused kernel's launches in the phase."""
+    from mlff_tpu_torch.data.synthetic import make_benchmark_dataset
+    from mlff_tpu_torch.models.gdml import Trainer
+    from mlff_tpu_torch.models.task import create_task
+    from mlff_tpu_torch.ops import fused_predict as fp
+    from mlff_tpu_torch.ops import kernel as knl
+
+    ds, perms = make_benchmark_dataset(molecule, n_samples=n_train
+                                       + N_HELD_LARGE, seed=11,
+                                       n_train=n_train)
+    task = create_task(ds, n_train, ds, n_valid=min(50, N_HELD_LARGE),
+                       sig=SIG, solver="cg",
+                       perms=perms)
+    held = np.setdiff1d(np.arange(n_train + N_HELD_LARGE), task["idxs_train"])
+    tr = Trainer(device=dev)
+    n_atoms = ds["R"].shape[1]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fp.desc_forces_fused.launches = 0
+    t0 = time.perf_counter()
+    m = tr.train(task, n_columns=k, str_preconditioner="lev_random")
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    info = tr.last_info
+    iters = int(m["solver_iters"])
+    ok, errF, errE, max_F, F = fast_against_f64(m, ds["R"][held], dev)
+    launches = fp.desc_forces_fused.launches
+    row = dict(molecule=molecule, n=int(np.asarray(task["F_train"]).size),
+               N_train=n_train, A=n_atoms, D=n_atoms * (n_atoms - 1) // 2,
+               P=int(perms.shape[0]), k=len(m["inducing_pts_idxs"]),
+               pairwise=Trainer._pairwise_fits(n_train, perms.shape[0]),
+               matvec_impl=info["matvec_impl"], converged=bool(m["is_conv"]),
+               iters=iters, iters_limit=limit, train_s=train_s,
+               cache_build_s=info["cache_build_s"],
+               preconditioner_s=info["total_time_preconditioner"],
+               cg_s=info["total_time_cg"],
+               ms_per_iter=info["total_time_cg"] * 1e3 / max(iters, 1),
+               peak_mem_gb=peak,
+               force_mae_held_out=float(np.abs(F - ds["F"][held]).mean()),
+               max_abs_err_F_vs_f64=errF, max_abs_err_E_vs_f64=errE,
+               max_abs_F=max_F, launches=launches)
+    if phase == "train_157k":
+        spec, S, X, Jc, P_idx = tr.build_kernel_inputs(task)
+        otf = knl.build_cache(X, Jc, S, P_idx, SIG, 1e-10, pairwise=False,
+                              device=dev)
+        v = torch.randn(otf.n, generator=torch.Generator(
+            device=dev).manual_seed(4), dtype=torch.float64, device=dev)
+        row["matvec_otf_ms"] = time_ms(torch, lambda: knl.matvec_psd(otf, v),
+                                       reps=5)
+        row["otf_tile"] = knl._otf_tile(n_train, otf.Xqt.shape[0])
+        Kv = knl.matvec_psd(otf, v)
+        del otf
+        cached = knl.build_cache(X, Jc, S, P_idx, SIG, 1e-10, device=dev)
+        row["matvec_cached_ms"] = time_ms(
+            torch, lambda: knl.matvec_psd(cached, v), reps=5)
+        row["rel_err_matvec_otf_vs_cached"] = rel_err(
+            Kv, knl.matvec_psd(cached, v))
+        row["cache_gb"] = 2 * cached.A_exp.numel() * 8 / 1e9
+        del cached, X, Jc, S
+        torch.cuda.empty_cache()
+    emit(phase, **row)
+    if not m["is_conv"] or iters > limit:
+        fail(f"{phase}: converged={m['is_conv']} in {iters} PCG iterations "
+             f"(limit {limit})")
+    if not ok:
+        fail(f"{phase}: Predictor(fast=True) disagrees with the f64 "
+             "Predictor")
+    if launches == 0:
+        fail(f"{phase}: Predictor(fast=True) did not launch fused_predict")
+    if phase == "train_157k" and (row["pairwise"] or not row[
+            "rel_err_matvec_otf_vs_cached"] <= 1e-12):
+        fail("train_157k: not on the OTF matvec, or the OTF matvec "
+             "disagrees with the cached one")
+    if phase == "train_catcher" and row["matvec_impl"] != "square":
+        fail("train_catcher: the square matvec was not selected")
+    return launches
+
+
+def nanotube(torch, dev) -> int:
+    """The nanotube (A = 370, D = 68,265, P = 1) at N_train = 14: the cache's
+    square fields, 1631 Nystrom columns through the square assembly against
+    the compressed one, the compressed diagonal, a capped solve and fast
+    prediction.  Returns the fused kernel's launches in the phase."""
+    from mlff_tpu_torch.data.synthetic import make_benchmark_dataset
+    from mlff_tpu_torch.models.gdml import Trainer
+    from mlff_tpu_torch.models.task import create_task
+    from mlff_tpu_torch.ops import fused_predict as fp
+    from mlff_tpu_torch.ops import kernel as knl
+
+    N = NANOTUBE_N_TRAIN
+    ds, perms = make_benchmark_dataset("nanotube", n_samples=N + N_HELD_LARGE,
+                                       seed=11, n_train=N)
+    task = create_task(ds, N, ds, n_valid=min(50, N_HELD_LARGE), sig=SIG,
+                       solver="cg",
+                       perms=perms)
+    held = np.setdiff1d(np.arange(N + N_HELD_LARGE), task["idxs_train"])
+    tr = Trainer(device=dev)
+    spec, S, X, Jc, P_idx = tr.build_kernel_inputs(task)
+    cache = knl.build_cache(X, Jc, S, P_idx, SIG, 1e-10,
+                            R=Trainer._square_R(task, spec, P_idx),
+                            device=dev)
+    fields = [f for f in ("Xsq", "Gsq", "Usq", "Zsq", "C1sq")
+              if getattr(cache, f) is not None]
+    cols = np.sort(np.random.default_rng(5).choice(cache.n, NANOTUBE_K,
+                                                   replace=False))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    K_sq = knl.assemble_columns_square(spec, cache, cols)
+    torch.cuda.synchronize()
+    square_s = time.perf_counter() - t0
+    sample = np.arange(0, NANOTUBE_K, NANOTUBE_SAMPLE_EVERY)
+    t0 = time.perf_counter()
+    K_c = knl.assemble_columns_compressed(spec, cache, cols[sample])
+    torch.cuda.synchronize()
+    compressed_s = time.perf_counter() - t0
+    err_cols = rel_err(K_sq[:, torch.as_tensor(sample, device=dev)], K_c)
+    diag = knl.kernel_diag_compressed(spec.dim_i, cache)
+    idx = torch.as_tensor(cols, device=dev)
+    err_diag = rel_err(diag[idx], K_sq[idx, torch.arange(NANOTUBE_K,
+                                                        device=dev)])
+    del cache, K_sq, K_c, diag, X, Jc, S
+    torch.cuda.empty_cache()
+
+    history = []       # (iterations, residual) after each chunk of PCG
+    fp.desc_forces_fused.launches = 0
+    t0 = time.perf_counter()
+    m = tr.train(dict(task, solver_maxiter=NANOTUBE_MAXITER),
+                 n_columns=NANOTUBE_K, str_preconditioner="lev_random",
+                 callback=lambda it, resid, eff: history.append(
+                     (int(it), float(resid))))
+    train_s = time.perf_counter() - t0
+    info = tr.last_info
+    ok, errF, errE, max_F, _ = fast_against_f64(m, ds["R"][held], dev)
+    launches = fp.desc_forces_fused.launches
+    resid, norm_y = float(m["solver_resid"]), float(m["norm_y_train"])
+    row = dict(n=N * 370 * 3, N_train=N, D=spec.dim, square_fields=fields,
+               k=NANOTUBE_K, square_columns_s=square_s,
+               compressed_columns_s=compressed_s,
+               compressed_sampled=len(sample),
+               rel_err_square_vs_compressed=err_cols,
+               rel_err_diag_vs_square_columns=err_diag,
+               matvec_impl=info["matvec_impl"],
+               iters=int(m["solver_iters"]), converged=bool(m["is_conv"]),
+               resid=resid, norm_y=norm_y, rel_resid=resid / norm_y,
+               resid_history=history,
+               train_s=train_s,
+               preconditioner_s=info["total_time_preconditioner"],
+               cg_s=info["total_time_cg"], max_abs_err_F_vs_f64=errF,
+               max_abs_err_E_vs_f64=errE, max_abs_F=max_F,
+               launches=launches)
+    emit("nanotube", **row)
+    if len(fields) != 5:
+        fail(f"nanotube: the cache carries square fields {fields} only")
+    if not (err_cols <= SQUARE_RTOL and err_diag <= SQUARE_RTOL):
+        fail(f"nanotube: square columns {err_cols} from the compressed ones, "
+             f"diagonal {err_diag}")
+    resids = [r for _, r in history]
+    if not (len(resids) >= 2 and np.all(np.isfinite(resids))
+            and resids[-1] < resids[0]
+            and m["solver_iters"] <= NANOTUBE_MAXITER):
+        fail(f"nanotube: the capped solve's residual is not finite and "
+             f"falling: {history}")
+    if info["matvec_impl"] != "square":
+        fail("nanotube: the square matvec was not selected")
+    if not ok:
+        fail("nanotube: Predictor(fast=True) disagrees with the f64 Predictor")
+    if launches == 0:
+        fail("nanotube: Predictor(fast=True) did not launch fused_predict")
+    return launches
 
 
 def df64_kernel_rows(torch) -> dict:
@@ -382,7 +775,8 @@ def zoo_dense(torch, dev) -> None:
     N = ZOO_DENSE_N_TRAIN
     ds, perms = make_benchmark_dataset("ethanol", n_samples=N + 50, seed=11,
                                        n_train=N)
-    task = create_task(ds, N, ds, n_valid=50, sig=SIG, solver="cg",
+    task = create_task(ds, N, ds, n_valid=min(50, N_HELD_LARGE), sig=SIG,
+                       solver="cg",
                        perms=perms)
     task["solver_maxiter"] = ZOO_DENSE_MAX_ITERS
     tr = Trainer(device=dev)
@@ -490,7 +884,10 @@ def main() -> None:
                 for ln in cuda_build.ptxas_lines(r)],
          # queries per block, threads, shared bytes, resident blocks per SM
          fused_predict_geometry={g.width: fp.library_geometry(
-             fp._library(), g.width) for g in fp.GEOMETRIES})
+             fp._library(), g.width) for g in fp.GEOMETRIES},
+         # queries, rows / columns per tile, depth, threads, shared bytes and
+         # resident blocks per SM of the two passes
+         fused_predict_wide_geometry=fp.library_wide_geometry(fp._library()))
     spills = [ln for r in reports.values() for ln in cuda_build.spill_lines(r)]
     if spills:
         fail(f"ptxas reports spills: {spills}")
@@ -513,6 +910,7 @@ def main() -> None:
     fused_rows = fused_predict_rows(torch, cache.Xq[:512], Xqt, wt,
                                     (knl.SQRT5 / SIG) * X_held)
     del cache, w, wt, Xqt
+    wide_rows = fused_wide_rows(torch)
     df64_rows = df64_kernel_rows(torch)
 
     # -- reference: the card against the CPU on a small training ------------
@@ -597,6 +995,11 @@ def main() -> None:
     if not (okF and okE and shapes_ok and finite):
         fail("Predictor(fast=True) disagrees with the f64 Predictor")
 
+    # -- train_otf: the main shape on the on-the-fly matvec ------------------
+    launches_new = {"train_otf": train_otf(
+        torch, dev, task, ds, held, {"iters": int(model["solver_iters"]),
+                                     "cg_s": info["total_time_cg"]}, mae)}
+
     # -- train_df64, train_colblock_df64: the df64 apply path ---------------
     mae_xla = float(np.abs(F_h64 - ds["F"][held]).mean())
     df64_launches = {}
@@ -644,17 +1047,39 @@ def main() -> None:
     zoo_launches = zoo_full(torch, tr, task, ds, held, mae_xla, (fp, dg))
     zoo_dense(torch, dev)
 
+    # -- train_157k, train_aspirin, train_catcher, nanotube: large systems ---
+    for phase, molecule, n_train, k, limit in LARGE:
+        launches_new[phase] = large_system(torch, dev, phase, molecule,
+                                           n_train, k, limit)
+    launches_new["nanotube"] = nanotube(torch, dev)
+
     full = fused_rows["full"]
     kernels = [{
         "name": "fused_predict", "route": "cuda",
         "source": "mlff_tpu_torch/csrc/fused_predict.cu",
         "replaces": "mlff_tpu/ops/pallas_predict.py:52",
         "launches": launches, "launches_zoo_full": zoo_launches["fused_predict"],
+        "launches_train_otf": launches_new["train_otf"],
+        "launches_train_157k": launches_new["train_157k"],
         "max_abs_err": full["max_abs_err_F"],
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
         "library_ms": None, "ms_spread": full["ms_spread"],
         "share_of_bound": full["share_of_bound"]}]
+    wide = wide_rows["aspirin"]
+    kernels.append({
+        "name": "fused_predict_wide", "route": "cuda",
+        "source": "mlff_tpu_torch/csrc/fused_predict.cu",
+        "replaces": "mlff_tpu/ops/pallas_predict.py:52",
+        "launches": launches_new["train_aspirin"],
+        "launches_train_catcher": launches_new["train_catcher"],
+        "launches_nanotube": launches_new["nanotube"],
+        "max_abs_err": wide["max_abs_err_F"],
+        "ms": wide["ms"], "plain_ms": wide["plain_ms"],
+        "bound_ms": wide["bound_ms"], "bound_by": wide["bound_by"],
+        "library_ms": None, "ms_spread": wide["ms_spread"],
+        "share_of_bound": wide["share_of_bound"],
+        "ms_by_shape": {k: v["ms"] for k, v in wide_rows.items()}})
     for name, line in (("df64_bt_v", 41), ("df64_b_x", 118)):
         main_row = df64_rows[(name, "main")]
         kernels.append({

@@ -1,7 +1,9 @@
 """Carry state between the JAX package and the port as NumPy arrays.
 
 ``kernel_cache_from_numpy`` builds the port's ``KernelCache`` from the fields
-of a JAX ``KernelCache`` (each leaf as a NumPy array), ``model_from_numpy``
+of a JAX ``KernelCache`` (each leaf as a NumPy array), and
+``square_cache_from_numpy`` the port's ``SquareCache`` from a JAX one;
+``model_from_numpy``
 validates a model dict that the JAX package wrote (an npz path or an
 in-memory dict) and returns it as the port's model, and the
 ``*_preconditioner_from_numpy`` functions rebuild a preconditioner from the
@@ -17,12 +19,15 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .ops.kernel import KernelCache
+from .ops.kernel import KernelCache, SquareCache
 from .solvers import preconditioners as pc
 from .utils import io
 
-_CACHE_FIELDS = ("X", "Jc", "S", "P_idx", "Xq", "Xqt", "A_exp", "A_exp1",
-                 "sig", "lam")
+_CACHE_FIELDS = ("X", "Jc", "S", "P_idx", "Xq", "Xqt", "sig", "lam")
+# None in an on-the-fly cache (pairwise=False) / a cache built without R
+_CACHE_OPTIONAL = ("A_exp", "A_exp1", "Xsq", "Gsq", "Usq", "Zsq", "C1sq")
+_SQUARE_FIELDS = ("Gs", "Gst", "Xs", "Xst", "perms", "A_exp", "A_exp1",
+                  "sig", "lam")
 
 # keys the Predictor reads, and the training record's identity
 _MODEL_KEYS = ("type", "z", "R_desc", "R_d_desc_alpha", "alphas_F", "perms",
@@ -32,23 +37,37 @@ _MODEL_KEYS = ("type", "z", "R_desc", "R_d_desc_alpha", "alphas_F", "perms",
 def kernel_cache_from_numpy(fields: dict, device=None) -> KernelCache:
     """Port ``KernelCache`` on ``device`` from NumPy copies of a JAX cache's
     leaves (``{name: np.asarray(getattr(cache, name))}``).  The pairwise
-    fields must be present: the port has no on-the-fly matvec yet."""
+    weights and the square fields may be None (or absent), as in a JAX
+    cache built with ``pairwise=False`` or without ``R``."""
     missing = [k for k in _CACHE_FIELDS if fields.get(k) is None]
     if missing:
         raise ValueError(f"kernel cache fields missing: {missing}")
     dev = resolve_device(device)
 
     def f64(name):
-        return torch.as_tensor(np.array(fields[name], dtype=np.float64),
-                               device=dev)
+        if fields.get(name) is None:
+            return None
+        return _tensor(fields[name], np.float64, dev)
 
     return KernelCache(
         X=f64("X"), Jc=f64("Jc"), S=f64("S"),
-        P_idx=torch.as_tensor(np.array(fields["P_idx"], dtype=np.int64),
-                              device=dev),
-        Xq=f64("Xq"), Xqt=f64("Xqt"), A_exp=f64("A_exp"),
-        A_exp1=f64("A_exp1"), sig=float(fields["sig"]),
-        lam=float(fields["lam"]))
+        P_idx=_tensor(fields["P_idx"], np.int64, dev),
+        Xq=f64("Xq"), Xqt=f64("Xqt"), sig=float(fields["sig"]),
+        lam=float(fields["lam"]), **{k: f64(k) for k in _CACHE_OPTIONAL})
+
+
+def square_cache_from_numpy(fields: dict, device=None) -> SquareCache:
+    """Port ``SquareCache`` on ``device`` from NumPy copies of a JAX
+    ``SquareCache``'s leaves."""
+    missing = [k for k in _SQUARE_FIELDS if fields.get(k) is None]
+    if missing:
+        raise ValueError(f"square cache fields missing: {missing}")
+    dev = resolve_device(device)
+    arrays = {k: _tensor(fields[k], np.float64, dev)
+              for k in _SQUARE_FIELDS if k not in ("perms", "sig", "lam")}
+    return SquareCache(perms=_tensor(fields["perms"], np.int64, dev),
+                       sig=float(fields["sig"]), lam=float(fields["lam"]),
+                       **arrays)
 
 
 def _tensor(a, dtype, dev) -> torch.Tensor:

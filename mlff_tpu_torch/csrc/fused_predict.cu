@@ -70,6 +70,29 @@
 //    second kernel adds the slabs in a fixed order: no atomics, the same
 //    bits on every run.
 //
+// The wide route (D > 129).  A warp's xq fragments and F accumulators no
+// longer fit its registers, and the weights of a pair need sums over all of
+// D before any of F can be formed.  So the wide route is two passes that
+// meet in a (B, M) pair of f64 weight arrays in device memory, as the TPU
+// kernel's own caller meets it in an f64 (B, M) distance array:
+//  * wide_weights: block (training tile, query tile) of 64 x 64 pairs walks
+//    D in steps of 16 through shared memory, S = xq wt^T and Gram = xq xt^T
+//    on m16n8k4 mmas (a warp owns 16 queries x 64 rows, 64 accumulators),
+//    and the row terms |xq|^2, |xt|^2, ct beside them; then the weights on
+//    the C fragments, G = a dot and a1 = a (1 + dist) written to device
+//    memory, and each query's sums of G and a1 dot over the tile written
+//    as the tile's partial;
+//  * wide_row_sums: each query's sum of G and its E over the training tiles,
+//    in tile order;
+//  * wide_forces: block (descriptor tile, query tile, slab of training rows)
+//    of 64 queries x 64 columns: F += G xt + a1 wt over the slab, 16 rows at
+//    a time through shared memory, on m16n8k4 mmas; with one slab it writes
+//    F = xq sum G - that, with several each slab writes a partial that
+//    wide_finish adds in slab order.
+// Rows, queries and columns past the ends are staged as zeros and not
+// stored; every sum runs in a fixed order, so a call gives the same bits
+// every time.  Simple before fast: no copy overlaps the products yet.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math).
 
@@ -437,10 +460,294 @@ using W40 = Instance<5, 2, 4, 3>;
 using W72 = Instance<9, 2, 4, 2>;
 using W136 = Instance<17, 1, 8, 1>;
 
+// -- the wide route ---------------------------------------------------------
+
+namespace wide {
+
+constexpr int BQ = 64;       // queries per block tile
+constexpr int BN = 64;       // training rows (pass 1) or columns (pass 2)
+constexpr int KC = 16;       // depth staged per step
+constexpr int NTHR = 128;    // 4 warps of 16 queries
+constexpr int PA = KC + 4;   // pitch of [row][k] tiles, 4 mod 8 doubles
+constexpr int PB = BN + 4;   // pitch of [k][column] tiles
+
+constexpr size_t smem_weights() {
+  return sizeof(double) * (size_t)((BQ + 2 * BN) * PA + BQ + 2 * BN);
+}
+constexpr size_t smem_forces() {
+  return sizeof(double) * (size_t)(2 * BQ * PA + 2 * KC * PB);
+}
+
+__global__ void __launch_bounds__(NTHR)
+wide_weights(const double* __restrict__ xq, const double* __restrict__ xt,
+             const double* __restrict__ wt, double* __restrict__ gw,
+             double* __restrict__ aw, double* __restrict__ gpart,
+             double* __restrict__ epart, int B, int M, int D, double c0) {
+  __shared__ __align__(16) double s_q[BQ * PA];
+  __shared__ __align__(16) double s_x[BN * PA];
+  __shared__ __align__(16) double s_w[BN * PA];
+  __shared__ double s_nq[BQ], s_nt[BN], s_ct[BN];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int m0 = blockIdx.x * BN, b0 = blockIdx.y * BQ;
+
+  double S[8][4], Gm[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) S[n][i] = Gm[n][i] = 0.0;
+  // thread r < 64 sums |xq|^2 of query row r; thread 64 + r sums |xt|^2 and
+  // ct of training row r
+  double r_nn = 0.0, r_ct = 0.0;
+
+  for (int k0 = 0; k0 < D; k0 += KC) {
+    for (int i = tid; i < BQ * KC; i += NTHR) {
+      const int r = i / KC, c = i % KC, d = k0 + c;
+      const bool dok = d < D;
+      s_q[r * PA + c] =
+          (dok && b0 + r < B) ? xq[(size_t)(b0 + r) * D + d] : 0.0;
+      const bool mok = dok && m0 + r < M;
+      s_x[r * PA + c] = mok ? xt[(size_t)(m0 + r) * D + d] : 0.0;
+      s_w[r * PA + c] = mok ? wt[(size_t)(m0 + r) * D + d] : 0.0;
+    }
+    __syncthreads();
+    if (tid < BQ) {
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        const double x = s_q[tid * PA + c];
+        r_nn = fma(x, x, r_nn);
+      }
+    } else {
+      const int r = tid - BQ;
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        const double x = s_x[r * PA + c];
+        r_nn = fma(x, x, r_nn);
+        r_ct = fma(x, s_w[r * PA + c], r_ct);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KC / 4; ++kk) {
+      double a[2];
+      a[0] = s_q[(16 * warp + g) * PA + 4 * kk + t];
+      a[1] = s_q[(16 * warp + g + 8) * PA + 4 * kk + t];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        mma(S[n], a, s_w[(8 * n + g) * PA + 4 * kk + t]);
+        mma(Gm[n], a, s_x[(8 * n + g) * PA + 4 * kk + t]);
+      }
+    }
+    __syncthreads();
+  }
+  if (tid < BQ) {
+    s_nq[tid] = r_nn;
+  } else {
+    s_nt[tid - BQ] = r_nn;
+    s_ct[tid - BQ] = r_ct;
+  }
+  __syncthreads();
+
+  // C fragment c[2 h + j] of tile n: query 16 warp + g + 8 h, training row
+  // 8 n + 2 t + j
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int bl = 16 * warp + g + 8 * h;
+    const int b = b0 + bl;
+    const double nq = s_nq[bl];
+    double gsum = 0.0, esum = 0.0;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int ml = 8 * n + 2 * t + j;
+        const int m = m0 + ml;
+        const double d2 = fmax(nq + s_nt[ml] - 2.0 * Gm[n][2 * h + j], 0.0);
+        const double ds = sqrt(d2);
+        const double a = c0 * exp(-ds);
+        const double dot = S[n][2 * h + j] - s_ct[ml];
+        const double gv = a * dot, a1 = a * (1.0 + ds);
+        if (m < M) {
+          gsum += gv;
+          esum = fma(a1, dot, esum);
+          if (b < B) {
+            gw[(size_t)b * M + m] = gv;
+            aw[(size_t)b * M + m] = a1;
+          }
+        }
+      }
+    gsum = quad_sum(gsum);
+    esum = quad_sum(esum);
+    if (t == 0 && b < B) {
+      gpart[(size_t)blockIdx.x * B + b] = gsum;
+      epart[(size_t)blockIdx.x * B + b] = esum;
+    }
+  }
+}
+
+// gsum[b] and e_out[b] = (sum of E's partials) / q, over the n_mt training
+// tiles in order
+__global__ void __launch_bounds__(256)
+wide_row_sums(const double* __restrict__ gpart,
+              const double* __restrict__ epart, double* __restrict__ gsum,
+              double* __restrict__ e_out, int B, int n_mt, double q) {
+  const int b = blockIdx.x * 256 + threadIdx.x;
+  if (b >= B) return;
+  double gs = 0.0, es = 0.0;
+  for (int k = 0; k < n_mt; ++k) {
+    gs += gpart[(size_t)k * B + b];
+    es += epart[(size_t)k * B + b];
+  }
+  gsum[b] = gs;
+  e_out[b] = es / q;
+}
+
+__global__ void __launch_bounds__(NTHR)
+wide_forces(const double* __restrict__ xq, const double* __restrict__ xt,
+            const double* __restrict__ wt, const double* __restrict__ gw,
+            const double* __restrict__ aw, const double* __restrict__ gsum,
+            double* __restrict__ f_out, double* __restrict__ part, int B,
+            int M, int D, int rows_per_split) {
+  __shared__ __align__(16) double s_g[BQ * PA];
+  __shared__ __align__(16) double s_a[BQ * PA];
+  __shared__ __align__(16) double s_x[KC * PB];
+  __shared__ __align__(16) double s_w[KC * PB];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int d0 = blockIdx.x * BN, b0 = blockIdx.y * BQ;
+  const int m_begin = blockIdx.z * rows_per_split;
+  const int m_end = min(M, m_begin + rows_per_split);
+
+  double F[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) F[n][i] = 0.0;
+
+  for (int k0 = m_begin; k0 < m_end; k0 += KC) {
+    for (int i = tid; i < BQ * KC; i += NTHR) {
+      const int r = i / KC, c = i % KC, m = k0 + c;
+      const bool ok = b0 + r < B && m < m_end;
+      s_g[r * PA + c] = ok ? gw[(size_t)(b0 + r) * M + m] : 0.0;
+      s_a[r * PA + c] = ok ? aw[(size_t)(b0 + r) * M + m] : 0.0;
+    }
+    for (int i = tid; i < KC * BN; i += NTHR) {
+      const int r = i / BN, c = i % BN, m = k0 + r, d = d0 + c;
+      const bool ok = m < m_end && d < D;
+      s_x[r * PB + c] = ok ? xt[(size_t)m * D + d] : 0.0;
+      s_w[r * PB + c] = ok ? wt[(size_t)m * D + d] : 0.0;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < KC / 4; ++kk) {
+      double ag[2], aa[2];
+      ag[0] = s_g[(16 * warp + g) * PA + 4 * kk + t];
+      ag[1] = s_g[(16 * warp + g + 8) * PA + 4 * kk + t];
+      aa[0] = s_a[(16 * warp + g) * PA + 4 * kk + t];
+      aa[1] = s_a[(16 * warp + g + 8) * PA + 4 * kk + t];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        mma(F[n], ag, s_x[(4 * kk + t) * PB + 8 * n + g]);
+        mma(F[n], aa, s_w[(4 * kk + t) * PB + 8 * n + g]);
+      }
+    }
+    __syncthreads();
+  }
+
+  double* slab = part == nullptr
+                     ? nullptr
+                     : part + (size_t)blockIdx.z * ((size_t)B * D);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int b = b0 + 16 * warp + g + 8 * h;
+    if (b >= B) continue;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int d = d0 + 8 * n + 2 * t + j;
+        if (d >= D) continue;
+        const size_t i = (size_t)b * D + d;
+        if (slab == nullptr)
+          f_out[i] = fma(xq[i], gsum[b], -F[n][2 * h + j]);
+        else
+          slab[i] = F[n][2 * h + j];
+      }
+  }
+}
+
+// f_out = xq * gsum - (sum of the n_split slabs' partials, in slab order)
+__global__ void __launch_bounds__(256)
+wide_finish(const double* __restrict__ xq, const double* __restrict__ gsum,
+            const double* __restrict__ part, double* __restrict__ f_out,
+            int B, int D, int n_split) {
+  const size_t total = (size_t)B * D;
+  const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (i >= total) return;
+  double s = 0.0;
+  for (int k = 0; k < n_split; ++k) s += part[(size_t)k * total + i];
+  f_out[i] = fma(xq[i], gsum[i / D], -s);
+}
+
+// scratch layout, in doubles: gw, aw (B M each), gpart, epart (n_mt B each),
+// gsum (B), and with n_split > 1 the slabs' partials (n_split B D)
+int launch(const double* xq, const double* xt, const double* wt,
+           double* scratch, double* f_out, double* e_out, int B, int M,
+           int D, int n_split, int rows_per_split, double c0, double q,
+           cudaStream_t s) {
+  const int n_mt = (M + BN - 1) / BN, n_bt = (B + BQ - 1) / BQ;
+  double* gw = scratch;
+  double* aw = gw + (size_t)B * M;
+  double* gpart = aw + (size_t)B * M;
+  double* epart = gpart + (size_t)n_mt * B;
+  double* gsum = epart + (size_t)n_mt * B;
+  double* part = n_split > 1 ? gsum + B : nullptr;
+
+  wide_weights<<<dim3(n_mt, n_bt), NTHR, 0, s>>>(xq, xt, wt, gw, aw, gpart,
+                                                  epart, B, M, D, c0);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  wide_row_sums<<<(B + 255) / 256, 256, 0, s>>>(gpart, epart, gsum, e_out, B,
+                                                n_mt, q);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  wide_forces<<<dim3((D + BN - 1) / BN, n_bt, n_split), NTHR, 0, s>>>(
+      xq, xt, wt, gw, aw, gsum, f_out, part, B, M, D, rows_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return (int)err;
+  const size_t total = (size_t)B * D;
+  wide_finish<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+      xq, gsum, part, f_out, B, D, n_split);
+  return (int)cudaGetLastError();
+}
+
+// {queries per tile, training rows / columns per tile, depth per step,
+//  threads, shared bytes of wide_weights and of wide_forces, resident blocks
+//  per SM of each}
+int geometry(int* out) {
+  out[0] = BQ;
+  out[1] = BN;
+  out[2] = KC;
+  out[3] = NTHR;
+  out[4] = (int)smem_weights();
+  out[5] = (int)smem_forces();
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[6], wide_weights, NTHR, 0);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[7], wide_forces, NTHR, 0);
+}
+
+}  // namespace wide
+
 }  // namespace
 
 // Launches both kernels on `stream` and returns cudaGetLastError() (0 on
-// success, cudaErrorInvalidValue for D > 136).  `part` is scratch of
+// success, cudaErrorInvalidValue for D > 136: those take
+// mlff_fused_predict_wide).  `part` is scratch of
 // n_split * (B * D + B) doubles; slab s is the training rows
 // [s * rows_per_split, (s + 1) * rows_per_split), a multiple of 16 rows.
 extern "C" int mlff_fused_predict(const double* xq, const double* xt,
@@ -469,4 +776,27 @@ extern "C" int mlff_fused_predict_geometry(int D, int* out) {
   if (D <= 72) return W72::geometry(out);
   if (D <= 136) return W136::geometry(out);
   return (int)cudaErrorInvalidValue;
+}
+
+// The wide route, for any D (the caller takes it for D > 129): three or four
+// launches on `stream`, returning cudaGetLastError().  `scratch` holds
+// 2 B M + 2 ceil(M / 64) B + B doubles, plus n_split B D with n_split > 1;
+// slab s is the training rows [s * rows_per_split, (s + 1) * rows_per_split).
+extern "C" int mlff_fused_predict_wide(const double* xq, const double* xt,
+                                       const double* wt, double* scratch,
+                                       double* f_out, double* e_out, int B,
+                                       int M, int D, int n_split,
+                                       int rows_per_split, double c0,
+                                       double q, void* stream) {
+  return wide::launch(xq, xt, wt, scratch, f_out, e_out, B, M, D, n_split,
+                      rows_per_split, c0, q,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The wide route's geometry, for the caller's plan to be held against:
+// out[0..7] = queries per tile, training rows (pass 1) and columns (pass 2)
+// per tile, rows per staged step, threads per block, static shared bytes of
+// the two passes, resident blocks per SM of the two passes.
+extern "C" int mlff_fused_predict_wide_geometry(int* out) {
+  return wide::geometry(out);
 }

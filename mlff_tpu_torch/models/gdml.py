@@ -92,8 +92,20 @@ class Trainer:
     @staticmethod
     def _pairwise_fits(n_train: int, n_perms: int) -> bool:
         """Whether the two (N, M) f64 pairwise caches fit (<= 3 GB), the JAX
-        package's switch to its on-the-fly matvec."""
+        package's switch to its on-the-fly matvec (ops.kernel
+        ._matvec_ref_otf)."""
         return 2 * n_train * n_train * n_perms * 8 <= int(3e9)
+
+    @staticmethod
+    def _square_R(task, spec, P_idx) -> np.ndarray | None:
+        """R_train for the kernel cache's square all-pairs fields: only for
+        single-perm molecules whose descriptor size trips the large-D paths
+        (the square layout assembles their columns ~(D/A)x faster)."""
+        P = int(P_idx.shape[0])
+        big = spec.dim * spec.dim_i * 8 * max(4, P) > knl._INFLATION_BUDGET
+        if big and P == 1:
+            return np.asarray(task["R_train"], dtype=np.float64)
+        return None
 
     # -- main entry --------------------------------------------------------
 
@@ -116,7 +128,7 @@ class Trainer:
             raise ValueError(f"unknown solver {solver!r}")
         if task.get("use_E_cstr"):
             raise NotImplementedError(
-                "energy-constrained training is ROADMAP module item 10")
+                "energy-constrained training is ROADMAP module item 10b")
 
         t_setup = time.perf_counter()
         spec, S, X, Jc, P_idx = self.build_kernel_inputs(task)
@@ -128,10 +140,6 @@ class Trainer:
             break_percentage = n_columns / len(y)
         if break_percentage is not None and not 0 <= break_percentage <= 1:
             raise ValueError(f"break_percentage {break_percentage} not in [0, 1]")
-        if not self._pairwise_fits(X.shape[0], P_idx.shape[0]):
-            raise NotImplementedError(
-                "kernel caches above 3 GB need the on-the-fly matvec, ROADMAP "
-                "module item 10")
 
         num_iters = None
         resid = None
@@ -150,8 +158,11 @@ class Trainer:
         else:
             task["lam"] = CG_LAM  # stronger ridge for the iterative paths
             t_cache = time.perf_counter()
-            cache = knl.build_cache(X, Jc, S, P_idx, float(task["sig"]),
-                                    CG_LAM, device=self.device)
+            cache = knl.build_cache(
+                X, Jc, S, P_idx, float(task["sig"]), CG_LAM,
+                R=self._square_R(task, spec, P_idx),
+                pairwise=self._pairwise_fits(X.shape[0], P_idx.shape[0]),
+                device=self.device)
             synchronize(self.device)
             cache_build_s = time.perf_counter() - t_cache
             log.info("kernel cache build: %.2fs", cache_build_s)

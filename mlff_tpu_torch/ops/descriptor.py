@@ -132,6 +132,13 @@ def vec_dot_d_desc(Jc: torch.Tensor, S: torch.Tensor,
     return torch.einsum("qa,...qx->...ax", S, jf)
 
 
+def inflate_jacobian(Jc: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
+    """Full (D, 3A) Jacobian from the compressed (D, 3) form
+    (reference desc.py:444-462 ``d_desc_from_comp``)."""
+    full = S[:, :, None] * Jc[:, None, :]   # (D, A, 3)
+    return full.reshape(Jc.shape[0], -1)
+
+
 def perm_to_desc_perm(perm: np.ndarray) -> np.ndarray:
     """Atom permutation (A,) -> descriptor permutation (D,)
     (reference desc.py:360-389).  Host NumPy."""

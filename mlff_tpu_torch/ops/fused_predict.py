@@ -11,8 +11,13 @@ permuted training set it computes
     F     = sum_m a [ dot (q x_b - q x~_m) - (1 + dist) w~_m ]
     E     = sum_m a (1 + dist) dot / q
 
-without any (B, M) array in device memory: the four products run on the
-FP64 tensor cores inside the kernel, distances and weights on their tiles.
+without any (B, M) array in device memory for D <= 129: the four products
+run on the FP64 tensor cores inside the kernel, distances and weights on
+their tiles.  Wider descriptors (molecules of 17 atoms and more) take the
+kernel's wide route: two passes of hand-written FP64 tensor-core products
+that meet in a (B, M) pair of f64 weights (G = a dot and a1) in device
+memory, as the TPU kernel's caller meets it in an f64 (B, M) distance
+array.
 The arithmetic is f64, not the TPU kernel's f32: the cotangents w~ of a
 lam = 1e-10 ridge solve are orders of magnitude larger than the forces they
 sum to, and an f32 contraction of a trained model misses the f64 forces by
@@ -20,9 +25,9 @@ far more than the tolerance of the f32 path
 (``tests/test_torch_fused_predict.py`` shows it on the JAX kernel itself).
 
 ``plan`` holds the launch geometry (which of the kernel's three widths takes
-D, the query tiles, the slabs of the training axis); the kernel source
-mirrors its constants and the wrapper holds the two against each other when
-the library is loaded.  ``desc_forces_fused`` launches the kernel for CUDA
+D, or the wide route, the query tiles, the slabs of the training axis); the
+kernel source mirrors its constants and the wrapper holds the two against
+each other when the library is loaded.  ``desc_forces_fused`` launches the kernel for CUDA
 tensors (or raises) and runs the plain PyTorch version
 ``desc_forces_fused_ref`` for CPU tensors.  ``desc_forces_fused.launches``
 counts the calls that launched the kernel.
@@ -43,8 +48,8 @@ from .kernel import SQRT5, pairwise_dist_gram
 TM = 16                  # training rows in a shared-memory stage
 STAGES = 4               # stages in the ring
 MAX_GRID_Y = 65535
-# the widest descriptor the wrapper takes: molecules of up to 16 atoms
-# (D = 120)
+# the widest descriptor of the three narrow instantiations (molecules of up
+# to 16 atoms, D = 120); wider ones take the wide route
 MAX_D = 129
 
 
@@ -84,11 +89,86 @@ class Plan:
     rows_per_split: int   # whole stages of TM rows
 
 
-def geometry_for(D: int) -> Geometry:
-    if not 1 <= D <= MAX_D:
-        raise ValueError(f"descriptor dimension {D} is outside the kernel's "
-                         f"range of 1 to {MAX_D}")
+@dataclass(frozen=True)
+class WideGeometry:
+    """The wide route (D > MAX_D): tiles of ``queries`` x ``tile`` pairs
+    (pass 1) and ``queries`` x ``tile`` forces (pass 2), ``depth`` rows or
+    columns staged per step."""
+
+    queries: int = 64
+    tile: int = 64
+    depth: int = 16
+    threads: int = 128
+
+    @property
+    def smem_weights(self) -> int:
+        """Static shared bytes of pass 1: the staged xq, xt, wt and the row
+        terms."""
+        return 8 * ((self.queries + 2 * self.tile) * (self.depth + 4)
+                    + self.queries + 2 * self.tile)
+
+    @property
+    def smem_forces(self) -> int:
+        """Static shared bytes of pass 2: G, a1, xt and wt stages."""
+        return 8 * (2 * self.queries * (self.depth + 4)
+                    + 2 * self.depth * (self.tile + 4))
+
+
+WIDE = WideGeometry()
+# (B, M) f64 weights of one wide pass, two arrays: queries go in chunks whose
+# weights stay within this many doubles (~268 MB)
+WIDE_WEIGHT_DOUBLES = 2**25
+
+
+@dataclass(frozen=True)
+class WidePlan:
+    """Launch geometry of one wide pass over ``b_chunk`` queries at most:
+    pass 1 on (n_mtiles, n_qtiles) blocks, pass 2 on (n_dtiles, n_qtiles,
+    n_split) blocks, slab s of pass 2 the training rows
+    [s * rows_per_split, (s + 1) * rows_per_split)."""
+
+    geometry: WideGeometry
+    b_chunk: int
+    n_qtiles: int
+    n_mtiles: int
+    n_dtiles: int
+    n_split: int
+    rows_per_split: int   # whole steps of ``depth`` rows
+
+    def scratch_doubles(self, B: int, M: int, D: int) -> int:
+        """Scratch of a pass over B <= b_chunk queries: the two (B, M)
+        weights, the two (n_mtiles, B) row partials, sum G (B), and the
+        slabs' (B, D) force partials when there are several."""
+        return (2 * B * M + 2 * self.n_mtiles * B + B
+                + (self.n_split * B * D if self.n_split > 1 else 0))
+
+
+def geometry_for(D: int) -> Geometry | WideGeometry:
+    if D < 1:
+        raise ValueError(f"descriptor dimension {D} is not positive")
+    if D > MAX_D:
+        return WIDE
     return next(g for g in GEOMETRIES if D <= g.width)
+
+
+def wide_plan(B: int, M: int, D: int, n_sm: int) -> WidePlan:
+    """The wide route for B >= 1 queries: chunks of queries whose weights fit
+    WIDE_WEIGHT_DOUBLES, and for pass 2 as many slabs of the training axis
+    as give two blocks per SM."""
+    geo = WIDE
+    b_chunk = max(geo.queries, min(WIDE_WEIGHT_DOUBLES // (2 * M),
+                                   MAX_GRID_Y * geo.queries)
+                  // geo.queries * geo.queries)
+    Bc = min(B, b_chunk)
+    n_qtiles = -(-Bc // geo.queries)
+    n_dtiles = -(-D // geo.tile)
+    n_steps = -(-M // geo.depth)
+    n_split = max(1, min(n_steps, 2 * n_sm // (n_qtiles * n_dtiles),
+                         MAX_GRID_Y))
+    rows = -(-n_steps // n_split) * geo.depth
+    return WidePlan(geometry=geo, b_chunk=b_chunk, n_qtiles=n_qtiles,
+                    n_mtiles=-(-M // geo.tile), n_dtiles=n_dtiles,
+                    n_split=-(-M // rows), rows_per_split=rows)
 
 
 def plan_for(geo: Geometry, B: int, M: int, n_sm: int) -> Plan:
@@ -105,10 +185,13 @@ def plan_for(geo: Geometry, B: int, M: int, n_sm: int) -> Plan:
 
 
 @functools.lru_cache(maxsize=64)
-def plan(B: int, M: int, D: int, n_sm: int) -> Plan:
+def plan(B: int, M: int, D: int, n_sm: int) -> Plan | WidePlan:
     """The geometry for B >= 1 queries against M >= 1 training rows of width
-    D on a card with ``n_sm`` SMs."""
-    return plan_for(geometry_for(D), B, M, n_sm)
+    D >= 1 on a card with ``n_sm`` SMs."""
+    geo = geometry_for(D)
+    if geo is WIDE:
+        return wide_plan(B, M, D, n_sm)
+    return plan_for(geo, B, M, n_sm)
 
 
 def _check(Xq_query: torch.Tensor, Xqt: torch.Tensor, wt: torch.Tensor):
@@ -152,6 +235,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mlff_fused_predict_geometry.argtypes = [ctypes.c_int,
                                                 ctypes.c_void_p]
     lib.mlff_fused_predict_geometry.restype = ctypes.c_int
+    lib.mlff_fused_predict_wide.argtypes = lib.mlff_fused_predict.argtypes
+    lib.mlff_fused_predict_wide.restype = ctypes.c_int
+    lib.mlff_fused_predict_wide_geometry.argtypes = [ctypes.c_void_p]
+    lib.mlff_fused_predict_wide_geometry.restype = ctypes.c_int
     return lib
 
 
@@ -167,11 +254,31 @@ def library_geometry(lib: ctypes.CDLL, D: int) -> tuple[int, int, int, int]:
     return tuple(out)
 
 
+def library_wide_geometry(lib: ctypes.CDLL) -> tuple[int, ...]:
+    """(queries per tile, rows / columns per tile, depth per step, threads,
+    shared bytes of pass 1 and pass 2, resident blocks per SM of pass 1 and
+    pass 2) of the wide route of ``lib``, on the current card."""
+    out = (ctypes.c_int * 8)()
+    err = lib.mlff_fused_predict_wide_geometry(ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"fused_predict wide geometry query failed: CUDA "
+                           f"error {err}")
+    return tuple(out)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    """The built library, once its constants are known to be ``GEOMETRIES``:
-    a plan made for other tiles would leave rows or queries out."""
+    """The built library, once its constants are known to be ``GEOMETRIES``
+    and ``WIDE``: a plan made for other tiles would leave rows or queries
+    out."""
     lib = _bind(cuda_build.load("fused_predict"))
+    wide = library_wide_geometry(lib)
+    if (wide[:6] != (WIDE.queries, WIDE.tile, WIDE.depth, WIDE.threads,
+                     WIDE.smem_weights, WIDE.smem_forces)
+            or min(wide[6:]) < 1):
+        raise RuntimeError(f"csrc/fused_predict.cu and ops/fused_predict.py "
+                           f"disagree on the wide route: kernel {wide}, plan "
+                           f"{WIDE}")
     for geo in GEOMETRIES:
         queries, threads, smem, resident = library_geometry(lib, geo.width)
         if ((queries, threads, smem) != (geo.queries, geo.threads,
@@ -206,15 +313,16 @@ def desc_forces_fused(Xq_query: torch.Tensor, Xqt: torch.Tensor,
     B, D = Xq_query.shape
     M = Xqt.shape[0]
     if B == 0 or M == 0:
-        geometry_for(D)      # an empty call still refuses a width too large
+        geometry_for(D)      # an empty call still refuses a width below 1
         return (torch.zeros((B, D), dtype=torch.float64, device=dev),
                 torch.zeros((B,), dtype=torch.float64, device=dev))
     p = plan(B, M, D, _sm_count(dev.index))
+    launch = _launch_wide if isinstance(p, WidePlan) else _launch
     if torch.cuda.current_device() == dev.index:
-        F, E = _launch(_library(), Xq_query, Xqt, wt, sig, p)
+        F, E = launch(_library(), Xq_query, Xqt, wt, sig, p)
     else:
         with torch.cuda.device(dev):
-            F, E = _launch(_library(), Xq_query, Xqt, wt, sig, p)
+            F, E = launch(_library(), Xq_query, Xqt, wt, sig, p)
     desc_forces_fused.launches += 1
     return F, E
 
@@ -244,6 +352,29 @@ def _launch(lib: ctypes.CDLL, Xq_query, Xqt, wt, sig: float, p: Plan):
     if err != 0:
         raise RuntimeError(f"fused_predict kernel launch failed: CUDA error "
                            f"{err}")
+    return f_out, e_out
+
+
+def _launch_wide(lib: ctypes.CDLL, Xq_query, Xqt, wt, sig: float,
+                 p: WidePlan):
+    """The wide route of one call, one pass per chunk of ``p.b_chunk``
+    queries, on the current stream of the tensors' device."""
+    (B, D), M, dev = Xq_query.shape, Xqt.shape[0], Xq_query.device
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    f_out = torch.empty((B, D), dtype=torch.float64, device=dev)
+    e_out = torch.empty((B,), dtype=torch.float64, device=dev)
+    for b0 in range(0, B, p.b_chunk):
+        Bc = min(p.b_chunk, B - b0)
+        pc = plan(Bc, M, D, _sm_count(dev.index))
+        scratch = _scratch(dev.index, stream, pc.scratch_doubles(Bc, M, D))
+        err = lib.mlff_fused_predict_wide(
+            Xq_query[b0:].data_ptr(), Xqt.data_ptr(), wt.data_ptr(),
+            scratch.data_ptr(), f_out[b0:].data_ptr(), e_out[b0:].data_ptr(),
+            Bc, M, D, pc.n_split, pc.rows_per_split, 5.0 / (3.0 * sig**2),
+            SQRT5 / sig, stream)
+        if err != 0:
+            raise RuntimeError(f"fused_predict wide launch failed: CUDA "
+                               f"error {err}")
     return f_out, e_out
 
 

@@ -50,7 +50,7 @@ def solve_analytic(
     """
     if use_E_cstr:
         raise NotImplementedError(
-            "the energy-constrained analytic solve is ROADMAP module item 10")
+            "the energy-constrained analytic solve is ROADMAP module item 10b")
     y_dev = torch.as_tensor(np.asarray(y), dtype=torch.float64,
                             device=cache.device)
     if cprsn_keep_atoms_idxs is not None:

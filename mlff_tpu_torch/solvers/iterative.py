@@ -11,15 +11,18 @@ sgdml/solvers/iterative_inpoints.py:1011-1066):
   * optional spectra diagnostics (``flag_eigvals``; reference
     dev_utils.py:8-58),
   * optional stagnation-triggered restarts that grow the inducing set and
-    warm-start from the last iterate (off by default, like the reference).
+    warm-start from the last iterate (off by default, like the reference),
+  * the square all-pairs matvec for large-A molecules
+    (``ops.kernel.SquareCache``), chosen by the JAX package's rule.
 
 Not in this module yet (each raises NotImplementedError naming its ROADMAP
-item): energy constraints, the square matvec, the reduced-precision matvecs
-and the ozaki apply.
+item): energy constraints, the reduced-precision matvecs and the ozaki
+apply.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass, field
 
@@ -64,7 +67,7 @@ def _check_task(task: dict) -> str:
     ``apply_impl``."""
     if task.get("use_E_cstr"):
         raise NotImplementedError(
-            "energy-constrained solves are ROADMAP module item 10")
+            "energy-constrained solves are ROADMAP module item 10b")
     apply_impl = str(task.get("apply_impl", "xla"))
     if apply_impl == "ozaki":
         raise NotImplementedError(
@@ -188,8 +191,11 @@ def compute_precon_spectrum(spec, cache, P_apply=None) -> np.ndarray:
 
 
 def _square_matvec_wins(spec: DescriptorSpec, cache: knl.KernelCache) -> bool:
-    """The JAX package's rule for its square all-pairs matvec (large-A
-    molecules); the port has no square layout yet."""
+    """Pick the square all-pairs matvec when the packed layout's dense
+    incidence-matrix contractions dominate: they cost ~N D 3A operations per
+    iteration against the square layout's ~N P A^2 12 elementwise ones, a
+    ratio of ~(A - 1) / (4 P).  The square layout also holds
+    (N P, A, A, 3) f64 fields, which must stay under 4 GB."""
     N, A, P = cache.n_train, spec.n_atoms, cache.n_perms
     sq_bytes = (2 * N * P * A * A * 3 + 2 * N * P * A * A) * 8
     return A >= 64 * P and sq_bytes < int(4e9)
@@ -217,11 +223,6 @@ def solve_iterative(
     if matvec_dtype != "float64":
         raise NotImplementedError(
             f"matvec_dtype {matvec_dtype!r} is ROADMAP module items 10-11")
-    impl = str(task.get("matvec_impl", "auto"))
-    if impl == "square" or (impl == "auto" and _square_matvec_wins(spec, cache)):
-        raise NotImplementedError(
-            "the square all-pairs matvec is ROADMAP module item 10")
-
     t_start = time.perf_counter()
     rng = np.random.default_rng(seed)
     n = cache.n
@@ -258,6 +259,20 @@ def solve_iterative(
         info["eigvals"] = compute_precon_spectrum(spec, cache, P_apply)
         info["eigvals_K"] = compute_precon_spectrum(spec, cache, None)
 
+    matvec = functools.partial(knl.matvec_psd, cache)
+    info["matvec_impl"] = "packed"
+    impl = str(task.get("matvec_impl", "auto"))
+    if impl == "square" or (impl == "auto" and _square_matvec_wins(spec, cache)):
+        # large-A molecules: the square all-pairs layout replaces the dense
+        # incidence-matrix products (ops.kernel.SquareCache)
+        sq = knl.build_cache_square(
+            np.asarray(task["R_train"], dtype=np.float64),
+            np.asarray(task.get("perms", np.arange(spec.n_atoms)[None])),
+            cache.sig, lam, device=dev)
+        matvec = functools.partial(knl.matvec_psd_square, sq)
+        info["matvec_impl"] = "square"
+        log.info("matvec: square all-pairs layout (A=%d)", spec.n_atoms)
+
     maxiter = 3 * spec.n_atoms * n_train * 5 if not flag_eigvals else 10
     if task.get("solver_maxiter"):
         # explicit cap (probing / budgeted runs); reference semantics keep
@@ -279,7 +294,7 @@ def solve_iterative(
     it0_initial = num_iters0  # maxiter budgets TOTAL new iterations across restarts
     while True:
         result = pcg(
-            lambda v: knl.matvec_psd(cache, v), y_dev, precon=P_apply, x0=x0,
+            matvec, y_dev, precon=P_apply, x0=x0,
             tol=float(task.get("solver_tol", 1e-4)),
             maxiter=max(0, maxiter - (num_iters0 - it0_initial)),
             callback=callback, checkpoint_callback=ckpt,

@@ -18,8 +18,9 @@ iterative_cholesky.py:115-156).  Three factorizations of (K + lam I):
   * ``block_rp_cholesky``: blocked randomly-pivoted Cholesky, pivots drawn in
     proportion to the residual diagonal (cf. arXiv:2410.03969).
 
-Energy-constrained systems and the large-D compressed column route raise
-NotImplementedError naming ROADMAP module item 10.
+Large-D molecules take their columns and diagonal from the inflation-free
+compressed routes of ``ops.kernel``.  Energy-constrained systems raise
+NotImplementedError naming ROADMAP module item 10b.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ def _no_ecstr(use_E_cstr: bool) -> None:
     if use_E_cstr:
         raise NotImplementedError(
             "pivoted Cholesky of the energy-constrained system is ROADMAP "
-            "module item 10")
+            "module item 10b")
 
 
 def _seed_diag(spec: DescriptorSpec, cache: knl.KernelCache, diag):
@@ -63,9 +64,11 @@ def _pivoted_cholesky_device(
     cache: knl.KernelCache,
     diag0: torch.Tensor,
     max_rank: int,
+    compressed: bool = False,
 ) -> PivotedCholeskyResult:
     """The greedy loop.  Every step is queued on the device without a host
-    read: the pivot ``p`` is a (1,) index tensor throughout."""
+    read: the pivot ``p`` is a (1,) index tensor throughout.  ``compressed``
+    takes the columns from ``kernel_column_compressed`` (large D)."""
     n = diag0.shape[0]
     dev, dtype = diag0.device, diag0.dtype
     L = torch.zeros((n, max_rank), dtype=dtype, device=dev)
@@ -82,6 +85,7 @@ def _pivoted_cholesky_device(
     eps_floor = torch.max(diag0) * 1e-30
     neg_inf = torch.full((), -torch.inf, dtype=dtype, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
+    getcol = knl.kernel_column_compressed if compressed else knl.kernel_column
 
     for m in range(max_rank):
         # greedy pivot: largest remaining diagonal among unchosen columns
@@ -90,7 +94,7 @@ def _pivoted_cholesky_device(
         ok = pval > eps_floor
         l_mm = torch.sqrt(torch.maximum(pval, eps_floor))
 
-        col = knl.kernel_column(spec_dim_i, cache, p)     # includes +lam e_p
+        col = getcol(spec_dim_i, cache, p)                # includes +lam e_p
 
         # Schur correction from the m filled columns: one (n, m) x (m,) GEMV
         newcol = col
@@ -130,7 +134,9 @@ def pivoted_cholesky(
     _no_ecstr(use_E_cstr)
     t0 = time.perf_counter()
     diag = _seed_diag(spec, cache, diag)
-    res = _pivoted_cholesky_device(spec.dim_i, cache, diag, max_rank)
+    # large-D molecules: columns without Jacobian inflation
+    res = _pivoted_cholesky_device(spec.dim_i, cache, diag, max_rank,
+                                   compressed=knl._is_large_D(spec, cache))
     # the first host read since the loop began; it also waits for the device
     min_pivot = float(res.pivot_values.min()) if max_rank > 0 else float("inf")
     elapsed = time.perf_counter() - t0

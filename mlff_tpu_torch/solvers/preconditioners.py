@@ -142,6 +142,31 @@ def woodbury_split_apply(P: WoodburySplitPreconditioner,
     return (v - P.B @ x) / P.lam
 
 
+# rows per pass of the chunked apply (the JAX package's _APPLY_CHUNK_ROWS)
+_APPLY_CHUNK_ROWS = 16384
+
+
+def _woodbury_split_apply_chunked(P: WoodburySplitPreconditioner,
+                                  v: torch.Tensor,
+                                  chunk: int = _APPLY_CHUNK_ROWS
+                                  ) -> torch.Tensor:
+    """``woodbury_split_apply`` over row chunks of B, the last one a shorter
+    slice.  The JAX package takes this form above 2 GB of B because its
+    broadcast-multiply passes build a transient the size of B; the port's
+    apply is two matrix-vector products (``B.T @ v``, ``B @ x``) that build
+    none, so ``woodbury_split_apply`` never routes here.  Kept for parity
+    with the JAX function."""
+    n = P.B.shape[0]
+    u = torch.zeros(P.B.shape[1], dtype=v.dtype, device=v.device)
+    for start in range(0, n, chunk):
+        u += P.B[start:start + chunk].T @ v[start:start + chunk]
+    x = P.W2 @ (P.W2.T @ u)
+    y = torch.empty_like(v)
+    for start in range(0, n, chunk):
+        y[start:start + chunk] = P.B[start:start + chunk] @ x
+    return (v - y) / P.lam
+
+
 def _pad_split(B: torch.Tensor, W2: torch.Tensor):
     """Pad B (n, m) with zero columns and W2 (m, m) with zero rows/cols to a
     multiple of 128 (inert in the split apply)."""
@@ -702,7 +727,7 @@ def nystrom_preconditioner(
     """
     if use_E_cstr:
         raise NotImplementedError(
-            "energy-constrained columns are ROADMAP module item 10")
+            "energy-constrained columns are ROADMAP module item 10b")
     if method not in ("chol_host", "eigh", "chol"):
         raise ValueError(f"unknown nystrom method {method!r}")
     if apply_impl == "ozaki" or os.environ.get("MLFF_BUILD_GEMM") == "ozaki":
@@ -897,7 +922,7 @@ def eigvec_preconditioner(
     if use_E_cstr:
         raise NotImplementedError(
             "the energy-constrained eigenvector preconditioner is ROADMAP "
-            "module item 10")
+            "module item 10b")
     key = ("svd", variant, use_E_cstr)
     if svd_cache is not None and key in svd_cache:
         U, s = svd_cache[key]

@@ -83,7 +83,8 @@ def operands(molecule: str, n_train: int, n_query: int, device):
     descriptors of seeded geometries of ``molecule`` (with its permutations
     where the benchmark data has them) and standard normal cotangents."""
     n = n_train + n_query
-    if molecule in ("ethanol", "uracil", "toluene"):
+    if molecule in ("ethanol", "uracil", "toluene", "aspirin", "catcher",
+                    "nanotube"):
         ds, perms = make_benchmark_dataset(molecule, n_samples=n, seed=11,
                                            n_train=n_train)
     else:

@@ -19,8 +19,11 @@ relative, and energies on the scale of the contraction's output before the
 integration constant c is added.  The df64 passes are held to 3e-12
 relative, the tolerance of ``tests/test_df64.py``; the df64 training, like
 ``chip_smoke.py``'s reference phase, to +-2 iterations and 1e-4 * max|F|.
-The greedy pivoted Cholesky on the card is held to the port's own CPU run on
-a random geometry (equal pivots, L to 1e-10, below the rank where
+The wide route (D > 129) is held to its plain version at 1e-10 as the
+narrow widths are, at D = 130, 210, 3,828 and 68,265.  The on-the-fly
+matvec and the square matvec are held to the cached packed matvec (1e-12,
+1e-10).  The greedy pivoted Cholesky on the card is held to the port's own
+CPU run on a random geometry (equal pivots, L to 1e-10, below the rank where
 translation ties appear, see ``tests/test_torch_zoo.py``) and queues its
 steps without a host read.
 """
@@ -146,12 +149,73 @@ def test_kernel_gives_the_same_bits_twice(by_width, B):
         assert torch.equal(F_1, F_2) and torch.equal(E_1, E_2)
 
 
-def test_wrapper_raises_above_the_widest_descriptor(small):
-    wide = torch.zeros((4, 136), dtype=torch.float64, device="cuda")
+# the wide route: width -> (molecule, training geometries); None: random
+WIDE_WIDTHS = {130: None, 210: ("aspirin", 250), 3828: ("catcher", 119),
+               68265: ("nanotube", 14)}
+
+
+@pytest.fixture(scope="module")
+def by_wide_width(small):
+    """{D: (queries, Xqt, wt)} on the card: 513 queries (60 at the
+    nanotube's width), M ragged against the wide route's 16-row steps and
+    64-row tiles where the molecule allows."""
+    out = {}
+    for D, source in WIDE_WIDTHS.items():
+        if source is None:
+            rng = np.random.default_rng(D)
+            Xq, Xqt, wt = (torch.as_tensor(a, device="cuda") for a in (
+                0.05 + 0.1 * rng.random((513, D)),
+                0.05 + 0.1 * rng.random((301, D)), rng.normal(size=(301, D))))
+        else:
+            Xq, Xqt, wt = operands(*source, 513 if D < 68265 else 60, "cuda")
+            if Xqt.shape[0] > 64:
+                Xqt, wt = Xqt[:-3].contiguous(), wt[:-3].contiguous()
+        assert Xq.shape[1] == D and fp.geometry_for(D) is fp.WIDE
+        out[D] = (Xq, Xqt, wt)
+    return out
+
+
+@pytest.mark.parametrize("B", [1, 7, 64, 513])
+@pytest.mark.parametrize("D", sorted(WIDE_WIDTHS))
+def test_wide_kernel_matches_plain_version(by_wide_width, D, B):
+    Xq, Xqt, wt = by_wide_width[D]
+    args = (Xq[:B].contiguous(), Xqt, wt)
+    B = args[0].shape[0]
     before = fp.desc_forces_fused.launches
-    with pytest.raises(ValueError, match=str(fp.MAX_D)):
-        fp.desc_forces_fused(wide, wide.clone(), wide.clone(), SIG)
-    assert fp.desc_forces_fused.launches == before
+    F_k, E_k = fp.desc_forces_fused(*args, SIG)
+    F_r, E_r = fp.desc_forces_fused_ref(*args, SIG)
+    torch.cuda.synchronize()
+    assert fp.desc_forces_fused.launches == before + 1
+    assert F_k.shape == (B, D) and E_k.shape == (B,)
+    assert torch.isfinite(F_k).all() and torch.isfinite(E_k).all()
+    assert _rel_err(F_k, F_r) <= RTOL and _rel_err(E_k, E_r) <= RTOL
+
+
+@pytest.mark.parametrize("D", [210, 3828])
+def test_wide_kernel_gives_the_same_bits_twice(by_wide_width, D):
+    """Slab partials and row sums are added in a fixed order."""
+    Xq, Xqt, wt = by_wide_width[D]
+    args = (Xq[:300].contiguous(), Xqt, wt)
+    F_1, E_1 = fp.desc_forces_fused(*args, SIG)
+    for _ in range(2):
+        F_2, E_2 = fp.desc_forces_fused(*args, SIG)
+        assert torch.equal(F_1, F_2) and torch.equal(E_1, E_2)
+
+
+def test_wide_kernel_chunks_the_queries(by_wide_width, monkeypatch):
+    """A call whose weights pass the budget goes in chunks of queries, the
+    last one ragged."""
+    Xq, Xqt, wt = by_wide_width[210]
+    monkeypatch.setattr(fp, "WIDE_WEIGHT_DOUBLES", 2 * 128 * Xqt.shape[0])
+    fp.plan.cache_clear()
+    try:
+        assert fp.plan(513, Xqt.shape[0], 210, 132).b_chunk == 128
+        F_k, E_k = fp.desc_forces_fused(Xq, Xqt, wt, SIG)
+    finally:
+        fp.plan.cache_clear()
+    F_r, E_r = fp.desc_forces_fused_ref(Xq, Xqt, wt, SIG)
+    torch.cuda.synchronize()
+    assert _rel_err(F_k, F_r) <= RTOL and _rel_err(E_k, E_r) <= RTOL
 
 
 def test_kernel_geometry_is_the_plans(small):
@@ -163,6 +227,66 @@ def test_kernel_geometry_is_the_plans(small):
         assert (queries, threads, smem) == (geo.queries, geo.threads,
                                             geo.smem_bytes)
         assert resident >= geo.blocks_per_sm
+    wide = fp.library_wide_geometry(lib)
+    assert wide[:6] == (fp.WIDE.queries, fp.WIDE.tile, fp.WIDE.depth,
+                        fp.WIDE.threads, fp.WIDE.smem_weights,
+                        fp.WIDE.smem_forces)
+    assert min(wide[6:]) >= 2
+
+
+def test_otf_matvec_matches_the_cached_matvec(small, monkeypatch):
+    """The on-the-fly matvec on the card, tiles of the 128-row floor with a
+    ragged last one, against the cached matvec at 1e-12."""
+    ds, perms = make_benchmark_dataset("ethanol", n_samples=300, seed=11,
+                                       n_train=300)
+    spec = dsc.make_spec(9)
+    X, Jc = dsc.descriptors_from_R(spec, torch.as_tensor(ds["R"],
+                                                         device="cuda"))
+    args = (X, Jc, dsc.incidence_matrix(spec, device="cuda"),
+            dsc.desc_perms(perms), SIG, 1e-10)
+    cached = knl.build_cache(*args)
+    otf = knl.build_cache(*args, pairwise=False)
+    v = torch.as_tensor(np.random.default_rng(2).normal(size=cached.n),
+                        device="cuda")
+    monkeypatch.setattr(knl, "_OTF_TILE", 128)
+    assert _rel_err(knl.matvec_psd(otf, v), knl.matvec_psd(cached, v)) <= 1e-12
+
+
+def test_square_matvec_matches_the_packed_matvec(small):
+    """The square all-pairs matvec on the card against the packed one
+    (catcher geometries, A = 88) at 1e-10."""
+    ds, _ = make_benchmark_dataset("catcher", n_samples=6, seed=11,
+                                   n_train=119)
+    spec = dsc.make_spec(88)
+    R = torch.as_tensor(ds["R"], device="cuda")
+    X, Jc = dsc.descriptors_from_R(spec, R)
+    perms = np.arange(88)[None]
+    packed = knl.build_cache(X, Jc, dsc.incidence_matrix(spec, device="cuda"),
+                             dsc.desc_perms(perms), SIG, 1e-10)
+    sq = knl.build_cache_square(R, perms, SIG, 1e-10)
+    v = torch.as_tensor(np.random.default_rng(5).normal(size=packed.n),
+                        device="cuda")
+    assert _rel_err(knl.matvec_psd_square(sq, v),
+                    knl.matvec_psd(packed, v)) <= 1e-10
+
+
+def test_fast_predictor_matches_f64_predictor_at_a_wide_width(small):
+    """An aspirin model (D = 210): the fast Predictor takes the wide route
+    and agrees with the f64 Predictor as at narrow widths."""
+    ds, perms = make_benchmark_dataset("aspirin", n_samples=40, seed=11,
+                                       n_train=30)
+    task = create_task(ds, 30, ds, n_valid=5, sig=SIG, solver="cg",
+                       perms=perms)
+    model = Trainer().train(task, n_columns=400,
+                            str_preconditioner="lev_random")
+    held = np.setdiff1d(np.arange(40), task["idxs_train"])
+    before = fp.desc_forces_fused.launches
+    E_f, F_f = Predictor(model, fast=True).predict(ds["R"][held])
+    assert fp.desc_forces_fused.launches > before
+    E_x, F_x = Predictor(model).predict(ds["R"][held])
+    assert np.abs(F_f - F_x).max() <= MODEL_RTOL * np.abs(F_x).max()
+    assert np.abs(E_f - E_x).max() <= \
+        MODEL_RTOL * np.abs(E_x - model["c"]).max()
 
 
 def test_fast_predictor_matches_f64_predictor(small):

@@ -11,7 +11,11 @@ and uracil, D = 66).  The CUDA kernel itself is compared with the plain
 version on the card (``tests/test_torch_cuda.py`` and ``chip_smoke.py``);
 its launch geometry (``plan``) is pure Python and checked here: slabs of
 whole 16-row stages that cover the training axis once, a grid and a
-shared-memory size the card takes.
+shared-memory size the card takes.  Descriptors wider than ``MAX_D`` = 129
+take the kernel's wide route; its plain version is the same function, held
+here to the JAX package's f64 contraction at D = 130, 136, 210 (aspirin),
+1,000 and 3,828 (catcher), and its plan at those widths and at the
+nanotube's D = 68,265.
 """
 
 import numpy as np
@@ -137,16 +141,50 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(operands, bad):
 
 
 def test_width_limit_is_the_kernels_and_is_named():
-    """The CPU route has no kernel to fit and takes the widest descriptor;
-    the kernel's geometry refuses the next width, naming the limit."""
+    """The CPU route takes every width; MAX_D is the widest of the narrow
+    instantiations, and the next width takes the wide route."""
     rng = np.random.default_rng(0)
-    Xq, Xqt, wt = _torch(rng.normal(size=(3, fp.MAX_D)),
-                         rng.normal(size=(8, fp.MAX_D)),
-                         rng.normal(size=(8, fp.MAX_D)))
-    F, E = fp.desc_forces_fused(Xq, Xqt, wt, SIG)
-    assert F.shape == (3, fp.MAX_D) and E.shape == (3,)
-    with pytest.raises(ValueError, match=str(fp.MAX_D)):
-        fp.geometry_for(fp.MAX_D + 1)
+    for D in (fp.MAX_D, fp.MAX_D + 1):
+        Xq, Xqt, wt = _torch(rng.normal(size=(3, D)), rng.normal(size=(8, D)),
+                             rng.normal(size=(8, D)))
+        F, E = fp.desc_forces_fused(Xq, Xqt, wt, SIG)
+        assert F.shape == (3, D) and E.shape == (3,)
+    assert fp.geometry_for(fp.MAX_D).width == 136
+    assert fp.geometry_for(fp.MAX_D + 1) is fp.WIDE
+
+
+WIDE_SOURCES = {130: None, 136: None, 210: "aspirin", 1000: None,
+                3828: "catcher"}
+
+
+def _wide_operands(D):
+    """Queries against 24 permuted training points of aspirin or catcher
+    (their benchmark datasets and permutation groups), or random operands of
+    a width no molecule has; random cotangents."""
+    if WIDE_SOURCES[D] is None:
+        rng = np.random.default_rng(D)
+        return (0.05 + 0.1 * rng.random((9, D)),
+                0.05 + 0.1 * rng.random((37, D)), rng.normal(size=(37, D)))
+    molecule = WIDE_SOURCES[D]
+    ds, _ = make_benchmark_dataset(molecule, n_samples=33, seed=11,
+                                   n_train=24)
+    spec = jd.make_spec(ds["R"].shape[1])
+    assert spec.dim == D
+    P_idx = jnp.asarray(jd.desc_perms(benchmark_perms(molecule)))
+    q = jk.SQRT5 / SIG
+    X, _ = jd.descriptors_from_R(spec, jnp.asarray(ds["R"][:24]))
+    Xq_query, _ = jd.descriptors_from_R(spec, jnp.asarray(ds["R"][24:]))
+    Xqt = jk.permuted_descriptors(q * X, P_idx)
+    w = np.random.default_rng(1).normal(size=(24, D))
+    wt = jk.perm_expand_w(jnp.asarray(w), P_idx)
+    return np.asarray(q * Xq_query), np.asarray(Xqt), np.asarray(wt)
+
+
+@pytest.mark.parametrize("D", sorted(WIDE_SOURCES))
+def test_plain_version_matches_f64_contraction_at_wide_widths(D):
+    operands = _wide_operands(D)
+    assert operands[0].shape[1] == D and fp.geometry_for(D) is fp.WIDE
+    _check_against_f64_contraction(operands, operands[0].shape[0])
 
 
 N_SM = 132     # an H100
@@ -188,10 +226,44 @@ def test_plan_fits_the_card(shape, D):
             or p.n_split == 1)
 
 
-@pytest.mark.parametrize("D", [0, 130, 136, 1000])
+@pytest.mark.parametrize("D", [0, -1])
 def test_plan_rejects_a_width_outside_the_kernel_range(D):
-    with pytest.raises(ValueError, match="129"):
+    with pytest.raises(ValueError, match="not positive"):
         fp.plan(512, 6996, D, N_SM)
+
+
+WIDE_WIDTHS = [130, 136, 210, 1000, 3828, 68265]
+WIDE_SHAPES = [(512, 6996), (7, 6959), (1, 14), (60, 14), (512, 119),
+               (512, 1500), (100000, 6996), (3000000, 14)]
+wide_cases = pytest.mark.parametrize(
+    "shape,D", [(s, d) for s in WIDE_SHAPES for d in WIDE_WIDTHS],
+    ids=[f"{b}x{m}-D{d}" for b, m in WIDE_SHAPES for d in WIDE_WIDTHS])
+
+
+@wide_cases
+def test_wide_plan_fits_the_card(shape, D):
+    """Shared memory under a block's 232,448 bytes, every grid axis the card
+    takes, the slabs covering the training axis once in whole steps, and
+    the scratch bounded: the (B, M) weights by WIDE_WEIGHT_DOUBLES (or one
+    64-query tile where M alone passes it), the slabs' partials by two
+    blocks per SM of 64 x 64 forces."""
+    (B, M), p = shape, fp.plan(*shape, D, N_SM)
+    geo = p.geometry
+    assert geo is fp.WIDE
+    assert max(geo.smem_weights, geo.smem_forces) <= 48 * 1024 <= 232448
+    assert p.b_chunk % geo.queries == 0 and p.b_chunk >= geo.queries
+    Bc = min(B, p.b_chunk)
+    assert p.n_qtiles == -(-Bc // geo.queries) <= 65535
+    assert 1 <= p.n_split <= 65535 and p.n_mtiles < 2**31
+    assert p.n_dtiles == -(-D // geo.tile) < 2**31
+    assert p.rows_per_split % geo.depth == 0
+    assert (p.n_split - 1) * p.rows_per_split < M <= p.n_split * p.rows_per_split
+    weights = 2 * Bc * M
+    assert weights <= max(fp.WIDE_WEIGHT_DOUBLES, 2 * geo.queries * M)
+    partials = p.scratch_doubles(Bc, M, D) - weights - 2 * p.n_mtiles * Bc - Bc
+    assert partials <= 2 * N_SM * geo.queries * geo.tile
+    if p.n_split > 1:
+        assert p.n_qtiles * p.n_dtiles * p.n_split <= 2 * N_SM + p.n_qtiles * p.n_dtiles
 
 
 def test_main_shape_plan_fills_the_card():

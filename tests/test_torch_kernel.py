@@ -72,8 +72,9 @@ def test_matvec_psd_matches_jax(caches):
 @pytest.mark.parametrize("kind", ["sparse", "dense"])
 def test_assemble_columns_matches_jax(caches, kind):
     """A leverage-like sparse set (scattered single partials) and a dense set
-    (whole points); the JAX package sends them down different branches, the
-    port through its grouped path."""
+    (whole points); both packages send them down different branches by the
+    same rule: the grouped column-exact assembly and the chunked point
+    blocks (``_point_blocks_chunk``)."""
     spec_j, cj, spec_t, ct = caches
     rng = np.random.default_rng(1)
     if kind == "sparse":
@@ -96,8 +97,26 @@ def test_kernel_cache_from_numpy_reproduces_jax_matvec(caches):
     assert _rel(got, jk.matvec_psd(cj, jnp.asarray(v))) < RTOL
 
 
-def test_unported_cache_options_raise(caches):
-    _, _, _, ct = caches
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.build_cache(ct.X, ct.Jc, ct.S, ct.P_idx, SIG, LAM, pairwise=False,
-                       device="cpu")
+@pytest.mark.parametrize("option", ["pairwise_false", "square_R"])
+def test_cache_options_build_what_jax_builds(caches, option):
+    """build_cache(pairwise=False) leaves out the (N, M) weights and its
+    matvec recomputes them; build_cache(R=...) adds the square all-pairs
+    fields.  Both as the JAX package builds them."""
+    _, cj, _, ct = caches
+    ds, perms = make_benchmark_dataset("ethanol", n_samples=20, seed=11,
+                                       n_train=20)
+    kw = ({"pairwise": False} if option == "pairwise_false"
+          else {"R": ds["R"]})
+    got = tk.build_cache(ct.X, ct.Jc, ct.S, ct.P_idx, SIG, LAM, device="cpu",
+                         **kw)
+    want = jk.build_cache(cj.X, cj.Jc, cj.S, cj.P_idx, SIG, LAM,
+                          **{k: jnp.asarray(v) if k == "R" else v
+                             for k, v in kw.items()})
+    if option == "pairwise_false":
+        assert got.A_exp is None and got.A_exp1 is None
+        v = np.random.default_rng(3).normal(size=ct.n)
+        assert _rel(tk.matvec_psd(got, torch.as_tensor(v)),
+                    jk.matvec_psd(want, jnp.asarray(v))) < RTOL
+    else:
+        for name in ("Xsq", "Gsq", "Usq", "Zsq", "C1sq"):
+            assert _rel(getattr(got, name), getattr(want, name)) < RTOL

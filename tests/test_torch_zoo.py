@@ -132,11 +132,24 @@ def test_kernel_column_matches_jax(setup_perms, col):
     assert _rel(block[:, col % spec_t.dim_i], want_no_ridge) <= KERNEL_RTOL
 
 
-def test_large_D_diagonal_raises():
-    spec = types.SimpleNamespace(dim=14365, dim_i=510)
+@pytest.mark.parametrize("dim,dim_i,route", [
+    (14365, 510, "kernel_diag_compressed"), (36, 27, "kernel_diag")],
+    ids=["large_D", "small_D"])
+def test_large_D_diagonal_routes_to_the_compressed_path(monkeypatch, dim,
+                                                        dim_i, route):
+    """Above the inflation budget (A = 170, D = 14,365) kernel_diag_any
+    takes the compressed diagonal, below it the inflating one, by the JAX
+    package's rule (the diagonals themselves: tests/test_torch_large_molecule.py)."""
+    spec = types.SimpleNamespace(dim=dim, dim_i=dim_i)
     cache = types.SimpleNamespace(n_perms=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP module item 10"):
-        tk.kernel_diag_any(spec, cache)
+    assert tk._is_large_D(spec, cache) == (
+        dim * dim_i * 8 * 4 > jk._INFLATION_BUDGET)
+    called = []
+    for name in ("kernel_diag_compressed", "kernel_diag"):
+        monkeypatch.setattr(tk, name,
+                            lambda T, c, name=name: called.append(name))
+    tk.kernel_diag_any(spec, cache)
+    assert called == [route]
 
 
 # -- the three factorizations --------------------------------------------------
