@@ -69,6 +69,21 @@ Phases, each printing one JSON line of its own numbers:
                  whose residual is finite and lower after the last chunk of
                  50 iterations than after the first, fast prediction against
                  f64
+  cli_reference  ``cli.main(["all", ...])`` on the reference phase's small
+                 set with --device cuda and --device cpu: the same sigma,
+                 iterations within 2, test force MAE within 1e-4
+  cli_all        the CLI at full width on the card's default device:
+                 ``all`` on calibrated ethanol (1166 training, 100
+                 validation, 200 test points, sigma 10 and 20, lev_random at
+                 k = 1536), then ``validate``, ``show`` and ``resume`` of
+                 best_model.npz; P from the CLI's own symmetry search
+  rule_of_thumb  harness.minimum_preconditioner_size on the train phase's
+                 task at k = 256 ... 3072, then optimal_precon_k and
+                 fit_slope beside the paper's (0.87, 10)
+  benchmark_models  train_model analytic and cg (the rule-of-thumb k) on
+                 cli_all's data, evaluate on 100 test points, forces within
+                 5e-3 of max |F|; the analytic solve's peak device memory
+                 with the ridge on K's diagonal against a dense identity
 The kernel phase also holds the fused kernel's wide route (D > 129) to its
 plain version at D = 130, 210, 3828 and 68,265 (1e-12, same bits twice)
 and times it at B = 512 at the aspirin, catcher and full-row shapes.
@@ -82,9 +97,14 @@ non-zero before any phase.
 
 from __future__ import annotations
 
+import contextlib
+import glob
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -159,6 +179,19 @@ OTF_MAE_RTOL = 1e-4
 NANOTUBE_N_TRAIN, NANOTUBE_K, NANOTUBE_MAXITER = 14, 1631, 200
 NANOTUBE_SAMPLE_EVERY = 26     # every 26th square column against compressed
 SQUARE_RTOL = 1e-10
+# the user's layers: the CLI, evaluate and the experiment harness.  cli_all's
+# data: 1166 training, 100 validation and 200 test points of calibrated
+# ethanol; its sigmas are the first two of the CLI's default grid, its k/n
+# as Python writes 1536 / 31,482 (int(k/n * n) = 1536 exactly)
+CLI_N_SAMPLES, CLI_N_VALID, CLI_N_TEST = 1466, 100, 200
+CLI_SIGS = ("10", "20")
+CLI_BREAK = repr(K_COLUMNS / (27 * N_TRAIN))
+# the card against the CPU: the reference phase's limits
+CLI_ITERS_SLACK, CLI_MAE_RTOL = 2, 1e-4
+# the k-sweep: it brackets the rule of thumb's k = 2049 at n = 31,482
+ROT_KS = (256, 512, 1024, 1536, 2048, 3072)
+# tests/test_golden_archived.py::test_archived_cg_curves_are_monotone_decreasing
+ROT_FIRST_OVER_LAST, ROT_NONINCREASING_SHARE = 2.0, 0.6
 
 
 def emit(phase: str, **fields) -> None:
@@ -851,6 +884,342 @@ def zoo_dense(torch, dev) -> None:
         fail("zoo_dense nystrom_method=chol: not converged")
 
 
+def launch_counts(reset: bool = False) -> dict:
+    """Every kernel wrapper's launch count, read (and set to 0 with
+    ``reset``).  The user's layers take the f64 Predictor and the f64 apply,
+    as the JAX package does, so their phases read 0 for each."""
+    from mlff_tpu_torch.ops import df64_gemv as dg
+    from mlff_tpu_torch.ops import fused_predict as fp
+
+    wrappers = {"fused_predict": fp.desc_forces_fused,
+                "df64_bt_v": dg.df64_bt_v, "df64_b_x": dg.df64_b_x}
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    if reset:
+        for fn in wrappers.values():
+            fn.launches = 0
+    return counts
+
+
+def run_cli(argv, cwd) -> tuple[object, str]:
+    """``cli.main(argv)`` from directory ``cwd``: its return value and what
+    it printed (the progress UI and the tables), kept off this script's
+    stdout, whose lines are JSON."""
+    from mlff_tpu_torch import cli
+
+    buf = io.StringIO()
+    old = os.getcwd()
+    os.chdir(cwd)
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = cli.main([str(a) for a in argv])
+    finally:
+        os.chdir(old)
+    return out, buf.getvalue()
+
+
+def load_npz(path) -> dict:
+    with np.load(path, allow_pickle=True) as f:
+        return {k: f[k] for k in f.files}
+
+
+def cli_reference(small: dict) -> None:
+    """``all`` on the reference phase's small ethanol set with --device cuda
+    and with --device cpu, each in its own directory: the same sigma, PCG
+    iterations within 2, the test tables' force MAE within 1e-4."""
+    from mlff_tpu_torch.utils import io as mio
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ethanol_small.npz")
+        mio.save_dataset(path, small)
+        for d in ("cuda", "cpu"):
+            wd = os.path.join(tmp, d)
+            os.mkdir(wd)
+            t0 = time.perf_counter()
+            res, _ = run_cli(["all", path, "30", "--n-valid", "5", "--sig",
+                              "10", "--solver", "cg", "--preconditioner",
+                              "lev_random", "--break-percentage", "0.25",
+                              "--n-test", "5", "--device", d], wd)
+            (best,) = glob.glob(os.path.join(wd, "*", "best_model.npz"))
+            m = load_npz(best)
+            runs[d] = dict(seconds=time.perf_counter() - t0,
+                           sig=float(m["sig"]), iters=int(m["solver_iters"]),
+                           P=int(m["perms"].shape[0]), test=res.as_dict())
+    f_cuda, f_cpu = runs["cuda"]["test"]["f_mae"], runs["cpu"]["test"]["f_mae"]
+    rel = abs(f_cuda - f_cpu) / abs(f_cpu)
+    emit("cli_reference", cuda=runs["cuda"], cpu=runs["cpu"],
+         rel_err_f_mae=rel)
+    if runs["cuda"]["sig"] != runs["cpu"]["sig"]:
+        fail("cli_reference: the card and the CPU selected different sigmas")
+    if abs(runs["cuda"]["iters"] - runs["cpu"]["iters"]) > CLI_ITERS_SLACK:
+        fail(f"cli_reference: {runs['cuda']['iters']} PCG iterations on the "
+             f"card against {runs['cpu']['iters']} on the CPU")
+    if not rel <= CLI_MAE_RTOL:
+        fail(f"cli_reference: test force MAE {f_cuda} on the card against "
+             f"{f_cpu} on the CPU")
+
+
+@contextlib.contextmanager
+def timed_calls(owner, names, seconds: dict):
+    """Time every call of ``owner.<name>`` into ``seconds[name]`` (a list),
+    so that one run of the ``all`` verb reports each stage."""
+    real = {name: getattr(owner, name) for name in names}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*args, **kwargs)
+            finally:
+                seconds.setdefault(name, []).append(time.perf_counter() - t0)
+        return call
+
+    for name in names:
+        setattr(owner, name, timed(name))
+    try:
+        yield seconds
+    finally:
+        for name, fn in real.items():
+            setattr(owner, name, fn)
+
+
+def finite_table(table: dict, use_E: bool) -> bool:
+    """Every error of an EvalResult finite; the energy errors are NaN by
+    design when the model predicts no energies."""
+    return all(np.isfinite(v) for k, v in table.items()
+               if use_E or not k.startswith("e_"))
+
+
+def cli_all(torch, ds_all: dict, tmp: str) -> None:
+    """The user's pipeline at full width through the CLI on the card's
+    default device: ``all`` (create, train both sigmas, select, test), then
+    ``validate`` of each model and of best_model.npz, ``show`` and
+    ``resume``."""
+    from mlff_tpu_torch import cli
+    from mlff_tpu_torch.utils import io as mio
+
+    path = os.path.join(tmp, "ethanol_1466.npz")
+    mio.save_dataset(path, ds_all)
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts(reset=True)
+    seconds: dict = {}
+    with timed_calls(cli, ("cmd_create", "cmd_train", "cmd_select",
+                           "cmd_test"), seconds), \
+            timed_calls(cli.Trainer, ("train",), seconds):
+        test, _ = run_cli(["all", path, str(N_TRAIN), "--n-valid",
+                           str(CLI_N_VALID), "--sig", *CLI_SIGS, "--solver",
+                           "cg", "--preconditioner", "lev_random",
+                           "--break-percentage", CLI_BREAK, "--n-test",
+                           str(CLI_N_TEST)], tmp)
+    (task_dir,) = {os.path.dirname(p) for p in
+                   glob.glob(os.path.join(tmp, "*", "task-sig*.npz"))}
+    per_sig, valid = {}, {}
+    for sig, train_s in zip(CLI_SIGS, seconds["train"]):
+        name = f"model-sig{float(sig):04g}.npz"
+        m = load_npz(os.path.join(task_dir, name))
+        iters = int(m["solver_iters"])
+        res, _ = run_cli(["validate", os.path.join(task_dir, name), path], tmp)
+        valid[sig] = res.f_mae
+        per_sig[sig] = dict(iters=iters, converged=bool(m["is_conv"]),
+                            train_s=train_s,
+                            cg_s=float(m["total_time_cg"]),
+                            preconditioner_s=float(
+                                m["total_time_preconditioner"]),
+                            ms_per_iter=float(m["total_time_cg"]) * 1e3
+                            / max(iters, 1),
+                            valid_f_mae=res.f_mae)
+    best_path = os.path.join(task_dir, "best_model.npz")
+    best = load_npz(best_path)
+    best_valid, _ = run_cli(["validate", best_path, path], tmp)
+    _, shown = run_cli(["show", best_path], tmp)
+    t0 = time.perf_counter()
+    resumed_path, _ = run_cli(["resume", best_path, path, "--preconditioner",
+                               "lev_random", "--break-percentage", CLI_BREAK],
+                              tmp)
+    resume_s = time.perf_counter() - t0
+    resumed = load_npz(os.path.join(tmp, resumed_path))
+    counts = launch_counts()
+    P = int(best["perms"].shape[0])
+    sig_best = f"{float(best['sig']):g}"
+    table = test.as_dict()
+    use_E = bool(best["use_E"])
+    emit("cli_all", n=27 * N_TRAIN, P=P, k=len(best["inducing_pts_idxs"]),
+         break_percentage=CLI_BREAK, create_s=sum(seconds["cmd_create"]),
+         train_verb_s=sum(seconds["cmd_train"]),
+         select_s=sum(seconds["cmd_select"]), test_s=sum(seconds["cmd_test"]),
+         sigmas=per_sig, selected_sig=sig_best,
+         best_valid_f_mae=best_valid.f_mae, test=table, use_E=use_E,
+         shown_lines=len(shown.splitlines()),
+         resume_new_iters=int(resumed["solver_iters"])
+         - int(best["solver_iters"]),
+         resume_converged=bool(resumed["is_conv"]), resume_s=resume_s,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         kernel_launches=counts)
+    if not per_sig["10"]["converged"]:
+        fail("cli_all: the sigma = 10 model did not converge")
+    if P == 6 and per_sig["10"]["iters"] > MAX_ITERS:
+        fail(f"cli_all: {per_sig['10']['iters']} PCG iterations at P = 6 > "
+             f"{MAX_ITERS}")
+    want = min(valid, key=valid.get)
+    if sig_best != want or best_valid.f_mae != valid[want]:
+        fail(f"cli_all: best_model.npz has sigma {sig_best}, validation "
+             f"force MAEs {valid}")
+    if table["n_points"] != CLI_N_TEST:
+        fail(f"cli_all: the test table has {table['n_points']} points")
+    if not (finite_table(table, use_E)
+            and finite_table(best_valid.as_dict(), use_E)
+            and all(np.isfinite(v) for v in valid.values())):
+        fail(f"cli_all: a non-finite error in {table}")
+    if not shown.startswith("model file:"):
+        fail("cli_all: show did not print a model file")
+    if not resumed["is_conv"]:
+        fail("cli_all: the resumed solve did not converge")
+
+
+def rule_of_thumb(task: dict, train_iters: int, tmp: str) -> None:
+    """The paper's k-sweep on the main system through the harness, then its
+    optimal-k analysis and the fit of (slope, k_unity)."""
+    import pickle
+
+    from mlff_tpu_torch.experiments import harness
+    from mlff_tpu_torch.experiments import rule_of_thumb as rot
+
+    n = int(np.asarray(task["F_train"]).size)
+    launch_counts(reset=True)
+    sweep = harness.minimum_preconditioner_size(
+        task, "lev_random", percentages=np.array(ROT_KS) / n, out_dir=tmp)
+    counts = launch_counts()
+    k = np.rint(sweep["lev_random_percentage"] * n).astype(int)
+    iters = sweep["lev_random_cgsteps"].astype(int)
+    t_solve = sweep["lev_random_total_time_solve"]
+    t_pre = sweep["lev_random_total_time_preconditioner"]
+    t_cg = sweep["lev_random_total_time_cg"]
+    # each k's own record, pickled in the reference's schema
+    conv = {}
+    for p in glob.glob(os.path.join(tmp, "**", "*.pickle"), recursive=True):
+        with open(p, "rb") as f:
+            rec = pickle.load(f)
+        conv[int(rec["k"])] = bool(rec["is_conv"])
+    opt = rot.optimal_precon_k(k, t_solve, t_pre, t_cg, n, "ethanol")
+    slope, k_unity = rot.fit_slope(k, iters, n)
+    paper = rot.get_params("ethanol")[:2]
+    emit("rule_of_thumb", n=n, P=int(task["perms"].shape[0]),
+         sig=float(task["sig"]),
+         rows=[dict(k=int(a), iters=int(b), converged=conv.get(int(a)),
+                    preconditioner_s=float(c), cg_s=float(d),
+                    solve_s=float(e))
+               for a, b, c, d, e in zip(k, iters, t_pre, t_cg, t_solve)],
+         rule_of_thumb_k=rot.rule_of_thumb(n, paper[1], paper[0]),
+         optimal_experimental_k=opt["optimal_experimental_k"],
+         rule_of_thumb_k_specific=opt["rule_of_thumb_k_specific"],
+         rule_of_thumb_factor_specific=opt["rule_of_thumb_factor_specific"],
+         naive_factor=opt["naive_factor"], fitted_slope=slope,
+         fitted_k_unity=k_unity, paper_slope=paper[0],
+         paper_k_unity=paper[1], train_iters=train_iters,
+         kernel_launches=counts)
+    if list(k) != list(ROT_KS) or sorted(conv) != list(ROT_KS):
+        fail(f"rule_of_thumb: the sweep ran k = {list(k)}, pickled "
+             f"{sorted(conv)}")
+    if not all(conv.values()):
+        fail(f"rule_of_thumb: unconverged runs {conv}")
+    if abs(int(iters[ROT_KS.index(K_COLUMNS)]) - train_iters) > CLI_ITERS_SLACK:
+        fail(f"rule_of_thumb: k = {K_COLUMNS} took "
+             f"{iters[ROT_KS.index(K_COLUMNS)]} iterations, the train phase "
+             f"{train_iters}")
+    s = iters[np.argsort(k)].astype(float)
+    if not (s[0] > ROT_FIRST_OVER_LAST * s[-1]
+            and np.mean(np.diff(s) <= 0) > ROT_NONINCREASING_SHARE):
+        fail(f"rule_of_thumb: the iteration curve {list(s)} does not fall")
+
+
+def benchmark_models(torch, dev, ds_all: dict) -> None:
+    """Analytic against PCG at the rule-of-thumb k on cli_all's data
+    through experiments.benchmark_models.train_model, both models' test
+    errors by evaluate, and the analytic solve's peak device memory with
+    the ridge on K's diagonal against K + reg * I formed with an identity."""
+    from mlff_tpu_torch.experiments import benchmark_models as bm
+    from mlff_tpu_torch.models.evaluate import evaluate
+    from mlff_tpu_torch.models.gdml import Trainer
+    from mlff_tpu_torch.models.predict import Predictor
+    from mlff_tpu_torch.models.task import create_task
+    from mlff_tpu_torch.ops import kernel as knl
+    from mlff_tpu_torch.solvers import analytic as an
+    from mlff_tpu_torch.utils.sampling import draw_strat_sample
+
+    launch_counts(reset=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m_an = bm.train_model(ds_all, N_TRAIN, "analytic")
+    peak_train_an = torch.cuda.max_memory_allocated() / 1e9
+    m_cg = bm.train_model(ds_all, N_TRAIN, "cg")
+    err_an = evaluate(m_an, ds_all, n_points=100)
+    err_cg = evaluate(m_cg, ds_all, n_points=100)
+    counts = launch_counts()
+    # the 100 test geometries evaluate drew
+    excl = np.concatenate([m_an["idxs_train"], m_an["idxs_valid"]])
+    idxs = draw_strat_sample(ds_all["E"], 100, excl_idxs=excl, seed=0)
+    _, F_an = Predictor(m_an, device=dev).predict(ds_all["R"][idxs])
+    _, F_cg = Predictor(m_cg, device=dev).predict(ds_all["R"][idxs])
+    scale = float(np.abs(F_an).max())
+    err_F = float(np.abs(F_cg - F_an).max())
+
+    # the analytic solve alone: peak memory above the kernel cache, with the
+    # ridge added to K's diagonal, then with the dense identity
+    task = create_task(ds_all, N_TRAIN, ds_all,
+                       n_valid=min(200, ds_all["R"].shape[0] - N_TRAIN - 1),
+                       sig=SIG, solver="analytic")
+    tr = Trainer(device=dev)
+    spec, S, X, Jc, P_idx = tr.build_kernel_inputs(task)
+    y, _ = tr.labels(task)
+    cache = knl.build_cache(X, Jc, S, P_idx, SIG, float(task["lam"]),
+                            device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    alphas = an.solve_analytic(spec, cache, y)
+    solve_s = time.perf_counter() - t0
+    peak_diag = (torch.cuda.max_memory_allocated() - base) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    K = knl.assemble_full(spec, cache)
+    A = K + an.ANALYTIC_REG * torch.eye(K.shape[0], dtype=K.dtype, device=dev)
+    L, info = torch.linalg.cholesky_ex(A)
+    y_dev = torch.as_tensor(y, dtype=torch.float64, device=dev)
+    alphas_eye = torch.cholesky_solve(y_dev[:, None], L)[:, 0].cpu().numpy()
+    peak_eye = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del K, A, L, cache, X, Jc, S
+    torch.cuda.empty_cache()
+    alpha_err = float(np.abs(alphas - alphas_eye).max()
+                      / np.abs(alphas_eye).max())
+    n = 27 * N_TRAIN
+    emit("benchmark_models", n=n, P=int(m_an["perms"].shape[0]),
+         runtime_analytic_s=float(m_an["solver_runtime_s"]),
+         runtime_cg_s=float(m_cg["solver_runtime_s"]),
+         speedup=float(m_an["solver_runtime_s"] / m_cg["solver_runtime_s"]),
+         f_mae_analytic=err_an.f_mae, f_mae_cg=err_cg.f_mae,
+         cg_iters=int(m_cg["solver_iters"]),
+         cg_converged=bool(m_cg["is_conv"]),
+         k=len(m_cg["inducing_pts_idxs"]),
+         peak_mem_gb=peak_train_an, analytic_solve_s=solve_s,
+         solve_peak_mem_gb=peak_diag,
+         solve_peak_mem_gb_dense_identity=peak_eye,
+         saved_gb=peak_eye - peak_diag, dense_K_gb=n * n * 8 / 1e9,
+         same_alphas_as_dense_identity=bool(np.array_equal(alphas,
+                                                           alphas_eye)),
+         rel_err_alphas_vs_dense_identity=alpha_err,
+         cholesky_info=int(info),
+         max_abs_err_F_cg_vs_analytic=err_F, max_abs_F=scale,
+         kernel_launches=counts)
+    if not (np.all(np.isfinite(F_an)) and np.all(np.isfinite(F_cg))):
+        fail("benchmark_models: non-finite forces")
+    if not err_F <= ANALYTIC_ATOL_REL * scale:
+        fail(f"benchmark_models: the cg model's forces miss the analytic "
+             f"model's by {err_F} (max |F| {scale})")
+    if not alpha_err <= 1e-12:
+        fail("benchmark_models: the ridge on K's diagonal changed the "
+             "analytic coefficients")
+
+
 def main() -> None:
     import torch
 
@@ -1052,6 +1421,17 @@ def main() -> None:
         launches_new[phase] = large_system(torch, dev, phase, molecule,
                                            n_train, k, limit)
     launches_new["nanotube"] = nanotube(torch, dev)
+
+    # -- cli_reference, cli_all, rule_of_thumb, benchmark_models: the layers
+    # a user meets, through their entry points on the card ------------------
+    cli_reference(small)
+    ds_all, _ = make_benchmark_dataset("ethanol", n_samples=CLI_N_SAMPLES,
+                                       seed=11, n_train=N_TRAIN)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_all(torch, ds_all, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        rule_of_thumb(task, int(model["solver_iters"]), tmp)
+    benchmark_models(torch, dev, ds_all)
 
     full = fused_rows["full"]
     kernels = [{

@@ -64,9 +64,18 @@ def solve_analytic(
         alphas = _lstsq(K, y_dev)
     else:
         K = knl.assemble_full(spec, cache)
-        A = K + reg * torch.eye(K.shape[0], dtype=K.dtype, device=K.device)
+        # the ridge goes onto the diagonal of one f64 copy of K (K itself
+        # unless it is returned): no dense identity, the same bits as
+        # K + reg * I
+        A = K.clone() if return_K else K
+        A.diagonal().add_(reg)
         L, info = torch.linalg.cholesky_ex(A)
         if int(info) == 0:
+            # cholesky_solve takes a column-major copy of L: free A first,
+            # so that two (n, n) arrays are alive at a time, not three
+            del A
+            if not return_K:
+                del K
             alphas = torch.cholesky_solve(y_dev[:, None], L)[:, 0]
         else:
             log.warning("Cholesky failed; falling back to LU solve")

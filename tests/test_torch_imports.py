@@ -38,6 +38,7 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import mlff_tpu_torch.models.gdml, mlff_tpu_torch.convert\n"
             "import mlff_tpu_torch.data.synthetic, mlff_tpu_torch.models.task\n"
+            "import mlff_tpu_torch.cli, mlff_tpu_torch.experiments.harness\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mlff_tpu')]\n"
             "assert not bad, bad\n")
@@ -45,12 +46,19 @@ def test_importing_the_port_loads_no_jax():
                    timeout=120)
 
 
-@pytest.mark.parametrize("entry", ["Trainer", "Predictor", "build_cache"])
-def test_entry_points_default_to_cuda(entry):
-    """Without a card, an entry point called without device="cpu" raises:
-    it never moves to the CPU on its own."""
+@pytest.mark.parametrize("entry", ["Trainer", "Predictor", "build_cache",
+                                   "cli.main", "evaluate", "cg_steps",
+                                   "train_model"])
+def test_entry_points_default_to_cuda(entry, tmp_path):
+    """Without a card, an entry point called without device="cpu" (the CLI
+    without --device cpu) raises: it never moves to the CPU on its own, and
+    the CLI writes nothing."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default is honoured")
+    from mlff_tpu_torch import cli
+    from mlff_tpu_torch.experiments.benchmark_models import train_model
+    from mlff_tpu_torch.experiments.harness import cg_steps
+    from mlff_tpu_torch.models.evaluate import evaluate
     from mlff_tpu_torch.models.gdml import Trainer
     from mlff_tpu_torch.models.predict import Predictor
     from mlff_tpu_torch.ops.kernel import build_cache
@@ -58,6 +66,12 @@ def test_entry_points_default_to_cuda(entry):
     call = {"Trainer": lambda: Trainer(),
             "Predictor": lambda: Predictor({"z": [1, 1]}),
             "build_cache": lambda: build_cache(None, None, None, None, 1.0,
-                                               1e-10)}[entry]
+                                               1e-10),
+            "cli.main": lambda: cli.main(["all", str(tmp_path / "d.npz"), "10",
+                                          "--task-dir", str(tmp_path / "t")]),
+            "evaluate": lambda: evaluate({"z": [1, 1]}, {}),
+            "cg_steps": lambda: cg_steps({}, "lev_random", 0.1),
+            "train_model": lambda: train_model({}, 10, "cg")}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
+    assert not list(tmp_path.iterdir())
