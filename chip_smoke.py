@@ -15,10 +15,11 @@ Phases, each printing one JSON line of its own numbers:
              in turns with its plain version (median, spread,
              share_of_bound) and, at B = 1 and B = 60, per call on the
              host's clock.
-             The df64 passes also at a second ragged shape with several
-             slabs (4099 x 1030) and at the shape the JAX package profiled
-             them at (75,006 x 3840), at every shape against the f64 cuBLAS
-             product of the unsplit B; at the two large shapes kernel and
+             The df64 passes also at the energy-constrained factor's
+             32,648 x 1536, at a second ragged shape with several slabs
+             (4099 x 1030) and at the shape the JAX package profiled them
+             at (75,006 x 3840), at every shape against the f64 cuBLAS
+             product of the unsplit B; at the three large shapes kernel and
              cuBLAS call are timed in turns (median, spread, vs_library,
              share_of_bound); df64_bt_v twice for the same bits
   apply      one preconditioner apply at the main factor shape: the f64
@@ -84,6 +85,29 @@ Phases, each printing one JSON line of its own numbers:
                  cli_all's data, evaluate on 100 test points, forces within
                  5e-3 of max |F|; the analytic solve's peak device memory
                  with the ridge on K's diagonal against a dense identity
+  train_ecstr    energy-constrained training (use_E_cstr) of the train
+                 phase's task: n + N = 31,482 + 1,166 = 32,648, k = 1536,
+                 lev_random to tol 1e-4, with (a) the f64 apply, (b)
+                 apply_impl="df64" (3 components: the two df64 kernels on the
+                 32,648 x 1536 factor in every PCG iteration) and (c) df64
+                 with nystrom_block_cols=512 (2 components); converged
+                 within 880 iterations, k = 1536, df64 launches >= iterations,
+                 held-out force and energy MAE of (b), (c) within 10% of
+                 (a)'s; then the analytic constrained solve of the same task
+                 (dense 32,648^2), whose held-out forces and energies the
+                 PCG model meets within 5e-3 of max |F| and of the energy
+                 range; Predictor(fast=True) on the constrained model takes
+                 the f64 contraction (the fused count stays 0, same bits)
+  zoo_ecstr      the constrained system at N_train = 120 (n + N = 3,360,
+                 k = 504): analytic, cholesky, cholesky_panel, rpcholesky,
+                 truncated_cholesky, lev_random, lev_random with
+                 allow_restarts from 2 inducing points (restarts at least
+                 once), and the three eigvec variants (controls); every
+                 converged model within 5e-3 of the analytic model's forces
+                 and energies
+  cli_ecstr      cli_reference with --E-cstr at --tol 1e-6: the same sigma on
+                 card and CPU, iterations within 2, test force and energy
+                 MAE within 1e-4
 The kernel phase also holds the fused kernel's wide route (D > 129) to its
 plain version at D = 130, 210, 3828 and 68,265 (1e-12, same bits twice)
 and times it at B = 512 at the aspirin, catcher and full-row shapes.
@@ -123,9 +147,11 @@ ATOL_REL, RTOL = 2e-5, 2e-4
 # the df64 passes: (label, n, m), and their tolerance relative to max |ref|
 # (tests/test_df64.py).  "profiled" is the shape of the JAX package's
 # tools/profile_df64_kernels.py; its plain version is timed, not compared.
-DF64_SHAPES = (("main", 31482, K_COLUMNS), ("ragged", 1001, 130),
-               ("ragged_slabs", 4099, 1030), ("profiled", 75006, 3840))
-DF64_TIMED = ("main", "profiled")
+# "ecstr" is the factor of the energy-constrained main task (n + N rows).
+DF64_SHAPES = (("main", 31482, K_COLUMNS), ("ecstr", 32648, K_COLUMNS),
+               ("ragged", 1001, 130), ("ragged_slabs", 4099, 1030),
+               ("profiled", 75006, 3840))
+DF64_TIMED = ("main", "ecstr", "profiled")
 DF64_RTOL = 3e-12
 # a fused_predict call keeps the host for tens of microseconds, at small B
 # longer than the card: its timed turns start behind a spin of this length
@@ -192,6 +218,27 @@ CLI_ITERS_SLACK, CLI_MAE_RTOL = 2, 1e-4
 ROT_KS = (256, 512, 1024, 1536, 2048, 3072)
 # tests/test_golden_archived.py::test_archived_cg_curves_are_monotone_decreasing
 ROT_FIRST_OVER_LAST, ROT_NONINCREASING_SHARE = 2.0, 0.6
+# train_ecstr: the JAX package's count for this task was not measured (a
+# full-size JAX run belongs on no shared CPU).  On the same generator at
+# N_train = 120, 240, 480 and k/n = 1536/31,482 the constrained solve took
+# 1.66-2.21x the force-only solve's iterations, in both packages alike
+# (PERF.md section 6), so the limit is train's 400 times 2.2
+ECSTR_MAX_ITERS = 880
+# zoo_ecstr: (row, strategy, extra task fields, extra train arguments); the
+# eigvec rows are controls (tests/test_ecstr.py asserts no convergence of
+# the masked ones)
+ZOO_ECSTR = (("cholesky", "cholesky", {}, {}),
+             ("cholesky_panel", "cholesky_panel", {}, {}),
+             ("rpcholesky", "rpcholesky", {}, {}),
+             ("truncated_cholesky", "truncated_cholesky", {}, {}),
+             ("lev_random", "lev_random", {}, {}),
+             ("allow_restarts", "lev_random", {"n_inducing_pts_init": 2},
+              {"break_percentage": None, "allow_restarts": True}),
+             ("eigvec_precon", "eigvec_precon", {}, {}),
+             ("eigvec_precon_block_diagonal",
+              "eigvec_precon_block_diagonal", {}, {}),
+             ("eigvec_precon_atomic_interactions",
+              "eigvec_precon_atomic_interactions", {}, {}))
 
 
 def emit(phase: str, **fields) -> None:
@@ -1170,7 +1217,7 @@ def benchmark_models(torch, dev, ds_all: dict) -> None:
                        sig=SIG, solver="analytic")
     tr = Trainer(device=dev)
     spec, S, X, Jc, P_idx = tr.build_kernel_inputs(task)
-    y, _ = tr.labels(task)
+    y, _, _ = tr.labels(task)
     cache = knl.build_cache(X, Jc, S, P_idx, SIG, float(task["lam"]),
                             device=dev)
     torch.cuda.synchronize()
@@ -1218,6 +1265,246 @@ def benchmark_models(torch, dev, ds_all: dict) -> None:
     if not alpha_err <= 1e-12:
         fail("benchmark_models: the ridge on K's diagonal changed the "
              "analytic coefficients")
+
+
+def held_out_errors(model, R, E, F, dev, fast=False):
+    """(force MAE, energy MAE, E_pred, F_pred) of ``model`` on R."""
+    from mlff_tpu_torch.models.predict import Predictor
+
+    E_p, F_p = Predictor(model, fast=fast, device=dev).predict(R)
+    return (float(np.abs(F_p - F).mean()), float(np.abs(E_p - E).mean()),
+            E_p, F_p)
+
+
+def train_ecstr(torch, dev, ds, perms) -> dict:
+    """Energy-constrained training at full width (n + N = 32,648, k = 1536):
+    (a) the f64 apply, (b) apply_impl="df64" with the two df64 kernels on
+    the (32,648, 1536) factor in every PCG iteration, (c) the df64 apply of
+    the column-blocked build; then the analytic constrained solve of the
+    same task, and Predictor(fast=True) on the constrained model.  Each line
+    sets every kernel count to 0 before its training and reads it after.
+    Returns {line: launches}."""
+    from mlff_tpu_torch.models.gdml import Trainer
+    from mlff_tpu_torch.models.predict import Predictor
+    from mlff_tpu_torch.models.task import create_task
+
+    task = create_task(ds, N_TRAIN, ds, n_valid=50, sig=SIG, solver="cg",
+                       perms=perms, use_E_cstr=True)
+    held = np.setdiff1d(np.arange(N_SAMPLES), task["idxs_train"])
+    R_h, E_h, F_h = ds["R"][held], ds["E"][held], ds["F"][held]
+    tr = Trainer(device=dev)
+    n_ext = 27 * N_TRAIN + N_TRAIN
+    lines, launches, models = {}, {}, {}
+    for line, extra in (("f64", {}), ("df64", {"apply_impl": "df64"}),
+                        ("colblock", {"apply_impl": "df64",
+                                      "nystrom_block_cols": COLBLOCK_COLS})):
+        launch_counts(reset=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = tr.train(dict(task, **extra), n_columns=K_COLUMNS,
+                     str_preconditioner="lev_random")
+        train_s = time.perf_counter() - t0
+        counts = launch_counts()
+        info = tr.last_info
+        iters = int(m["solver_iters"])
+        f_mae, e_mae, _, _ = held_out_errors(m, R_h, E_h, F_h, dev)
+        row = dict(line=line, n=n_ext, k=len(m["inducing_pts_idxs"]),
+                   components=info["nystrom"].get("components"),
+                   n_blocks=info["nystrom"].get("n_blocks", 1),
+                   converged=bool(m["is_conv"]), iters=iters,
+                   train_s=train_s,
+                   preconditioner_s=info["total_time_preconditioner"],
+                   cg_s=info["total_time_cg"],
+                   ms_per_iter=info["total_time_cg"] * 1e3 / max(iters, 1),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   gram_guard_fired=info["nystrom"]["gram_guard_fired"],
+                   force_mae_held_out=f_mae, energy_mae_held_out=e_mae,
+                   c=float(m["c"]), **{f"launches_{line}": counts})
+        emit("train_ecstr", **row)
+        lines[line], launches[line], models[line] = row, counts, m
+        if row["k"] != K_COLUMNS:
+            fail(f"train_ecstr {line}: k = {row['k']}, not {K_COLUMNS}")
+        if not m["is_conv"] or iters > ECSTR_MAX_ITERS:
+            fail(f"train_ecstr {line}: converged={m['is_conv']} in {iters} "
+                 f"PCG iterations (limit {ECSTR_MAX_ITERS})")
+        if m["alphas_E"].shape != (N_TRAIN,) or m["c"] != float(
+                np.mean(task["E_train"])):
+            fail(f"train_ecstr {line}: the model lacks its energy "
+                 "coefficients or its constant")
+        if counts["fused_predict"]:
+            fail(f"train_ecstr {line}: the fused kernel ran: {counts}")
+        if line == "f64":
+            if counts["df64_bt_v"] or counts["df64_b_x"]:
+                fail(f"train_ecstr f64 launched a df64 kernel: {counts}")
+            continue
+        if min(counts["df64_bt_v"], counts["df64_b_x"]) < iters:
+            fail(f"train_ecstr {line}: {counts} df64 launches for {iters} "
+                 "PCG iterations")
+        ref = lines["f64"]
+        for key in ("force_mae_held_out", "energy_mae_held_out"):
+            if not abs(row[key] / ref[key] - 1.0) <= MAE_RATIO_LIMIT:
+                fail(f"train_ecstr {line}: {key} {row[key]} against "
+                     f"{ref[key]} of the f64 apply")
+
+    # the analytic constrained solve of the same task, on the card
+    launch_counts(reset=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m_an = tr.train(dict(task, solver_name="analytic"))
+    an_s = time.perf_counter() - t0
+    solve_peak = torch.cuda.max_memory_allocated() / 1e9
+    f_an, e_an, E_an, F_an = held_out_errors(m_an, R_h, E_h, F_h, dev)
+    _, _, E_cg, F_cg = held_out_errors(models["f64"], R_h, E_h, F_h, dev)
+    err_F = float(np.abs(F_cg - F_an).max())
+    err_E = float(np.abs(E_cg - E_an).max())
+    scale_F = float(np.abs(F_an).max())
+    range_E = float(E_h.max() - E_h.min())
+    counts = launch_counts()
+    emit("train_ecstr", line="analytic", n=n_ext, train_s=an_s,
+         solve_peak_mem_gb=solve_peak, dense_K_gb=n_ext * n_ext * 8 / 1e9,
+         force_mae_held_out=f_an, energy_mae_held_out=e_an,
+         max_abs_err_F_pcg_vs_analytic=err_F, max_abs_F=scale_F,
+         max_abs_err_E_pcg_vs_analytic=err_E, held_out_E_range=range_E,
+         launches_analytic=counts)
+    if not (np.all(np.isfinite(F_an)) and np.all(np.isfinite(E_an))):
+        fail("train_ecstr analytic: non-finite predictions")
+    if not (err_F <= ANALYTIC_ATOL_REL * scale_F
+            and err_E <= ANALYTIC_ATOL_REL * range_E):
+        fail(f"train_ecstr: the PCG model misses the analytic model by "
+             f"{err_F} in forces (max |F| {scale_F}) and {err_E} in "
+             f"energies (range {range_E})")
+    del m_an
+
+    # Predictor(fast=True) on the constrained model: the JAX package's rule
+    # sends it through the f64 contraction, so the fused kernel stays idle
+    m = models["f64"]
+    R_all = np.concatenate([R_h, task["R_train"]])
+    launch_counts(reset=True)
+    fast = Predictor(m, fast=True, device=dev)
+    fast.predict(R_all[:8])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    E_f, F_f = fast.predict(R_all)
+    ms = (time.perf_counter() - t0) * 1e3 / len(R_all)
+    counts = launch_counts()
+    E_s, F_s = Predictor(m, fast=False, device=dev).predict(R_all)
+    same = bool(np.array_equal(E_f, E_s) and np.array_equal(F_f, F_s))
+    emit("train_ecstr", line="predict_fast", geometries=len(R_all),
+         routed_fast=bool(fast.fast), same_bits_as_f64=same,
+         ms_per_geometry=ms, launches_predict=counts)
+    if counts["fused_predict"] or fast.fast or not same:
+        fail(f"train_ecstr: Predictor(fast=True) on a constrained model took "
+             f"the fused kernel or other bits: {counts}, same={same}")
+    launches["predict"] = counts
+    return launches
+
+
+def zoo_ecstr(torch, dev) -> None:
+    """The constrained system at a size the dense families allow
+    (N_train = 120, n + N = 3,360, k/(n + N) = 15%): the analytic solve and
+    every factor and Nystrom family, each converged model held to the
+    analytic model's forces and energies on training geometries."""
+    from mlff_tpu_torch.data.synthetic import make_benchmark_dataset
+    from mlff_tpu_torch.models.gdml import Trainer
+    from mlff_tpu_torch.models.predict import Predictor
+    from mlff_tpu_torch.models.task import create_task
+
+    N = ZOO_DENSE_N_TRAIN
+    ds, perms = make_benchmark_dataset("ethanol", n_samples=N + 50, seed=11,
+                                       n_train=N)
+    task = create_task(ds, N, ds, n_valid=min(50, N_HELD_LARGE), sig=SIG,
+                       solver="cg", perms=perms, use_E_cstr=True)
+    task["solver_maxiter"] = ZOO_DENSE_MAX_ITERS
+    tr = Trainer(device=dev)
+    R10 = np.asarray(task["R_train"])[:10]
+    E_train = np.asarray(task["E_train"]).ravel()
+    range_E = float(E_train.max() - E_train.min())
+
+    t0 = time.perf_counter()
+    m_an = tr.train(dict(task, solver_name="analytic"))
+    E_an, F_an = Predictor(m_an, device=dev).predict(R10)
+    scale = float(np.abs(F_an).max())
+    emit("zoo_ecstr", row="analytic", n=28 * N,
+         train_s=time.perf_counter() - t0, max_abs_F=scale,
+         train_E_range=range_E)
+    if not (np.all(np.isfinite(F_an)) and np.all(np.isfinite(E_an))):
+        fail("zoo_ecstr: the analytic model's predictions are not finite")
+
+    for label, strategy, extra, kw in ZOO_ECSTR:
+        t0 = time.perf_counter()
+        m = tr.train(dict(task, **extra), str_preconditioner=strategy,
+                     **dict({"break_percentage": ZOO_DENSE_FRACTION}, **kw))
+        info = tr.last_info
+        E, F = Predictor(m, device=dev).predict(R10)
+        err_F = float(np.abs(F - F_an).max())
+        err_E = float(np.abs(E - E_an).max())
+        control = strategy.startswith("eigvec_")
+        emit("zoo_ecstr", row=label, strategy=strategy, n=28 * N,
+             k=len(m["inducing_pts_idxs"]),
+             build_s=info["total_time_preconditioner"],
+             iters=int(m["solver_iters"]), converged=bool(m["is_conv"]),
+             num_restarts=int(m.get("num_restarts", 0)),
+             cg_s=info["total_time_cg"], train_s=time.perf_counter() - t0,
+             max_abs_err_F_vs_analytic=err_F,
+             max_abs_err_E_vs_analytic=err_E, control=control)
+        if control:
+            continue
+        if not m["is_conv"]:
+            fail(f"zoo_ecstr {label}: not converged in {m['solver_iters']} "
+                 "iterations")
+        if not (err_F <= ANALYTIC_ATOL_REL * scale
+                and err_E <= ANALYTIC_ATOL_REL * range_E):
+            fail(f"zoo_ecstr {label}: misses the analytic model by {err_F} "
+                 f"in forces (max |F| {scale}) and {err_E} in energies "
+                 f"(range {range_E})")
+        if kw.get("allow_restarts") and m["num_restarts"] < 1:
+            fail("zoo_ecstr allow_restarts: no restart")
+
+
+def cli_ecstr(small: dict) -> None:
+    """``cli.main(["all", ..., "--E-cstr"])`` on the reference phase's small
+    set with --device cuda and --device cpu: the same sigma, iterations
+    within 2, test force and energy MAE within 1e-4 relative.  At
+    ``--tol 1e-6``, as tests/test_torch_cli.py compares two cg pipelines:
+    at the default 1e-4 the card's and the CPU's solves stopped 2
+    iterations apart with energy MAEs 3e-3 apart on an NVIDIA H100 80GB
+    HBM3 at 700.00 W (a constrained model's energies cancel two large
+    terms)."""
+    from mlff_tpu_torch.utils import io as mio
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ethanol_small.npz")
+        mio.save_dataset(path, small)
+        for d in ("cuda", "cpu"):
+            wd = os.path.join(tmp, d)
+            os.mkdir(wd)
+            t0 = time.perf_counter()
+            res, _ = run_cli(["all", path, "30", "--n-valid", "5", "--sig",
+                              "10", "--solver", "cg", "--preconditioner",
+                              "lev_random", "--break-percentage", "0.25",
+                              "--tol", "1e-6", "--n-test", "5", "--E-cstr",
+                              "--device", d], wd)
+            (best,) = glob.glob(os.path.join(wd, "*", "best_model.npz"))
+            m = load_npz(best)
+            runs[d] = dict(seconds=time.perf_counter() - t0,
+                           sig=float(m["sig"]), iters=int(m["solver_iters"]),
+                           has_alphas_E="alphas_E" in m, test=res.as_dict())
+    rel = {f: abs(runs["cuda"]["test"][f] - runs["cpu"]["test"][f])
+           / abs(runs["cpu"]["test"][f]) for f in ("f_mae", "e_mae")}
+    emit("cli_ecstr", cuda=runs["cuda"], cpu=runs["cpu"],
+         rel_err_f_mae=rel["f_mae"], rel_err_e_mae=rel["e_mae"])
+    if not (runs["cuda"]["has_alphas_E"] and runs["cpu"]["has_alphas_E"]):
+        fail("cli_ecstr: a model without energy coefficients")
+    if runs["cuda"]["sig"] != runs["cpu"]["sig"]:
+        fail("cli_ecstr: the card and the CPU selected different sigmas")
+    if abs(runs["cuda"]["iters"] - runs["cpu"]["iters"]) > CLI_ITERS_SLACK:
+        fail(f"cli_ecstr: {runs['cuda']['iters']} PCG iterations on the card "
+             f"against {runs['cpu']['iters']} on the CPU")
+    if not max(rel.values()) <= CLI_MAE_RTOL:
+        fail(f"cli_ecstr: test MAEs part by {rel} between card and CPU")
 
 
 def main() -> None:
@@ -1433,6 +1720,11 @@ def main() -> None:
         rule_of_thumb(task, int(model["solver_iters"]), tmp)
     benchmark_models(torch, dev, ds_all)
 
+    # -- train_ecstr, zoo_ecstr, cli_ecstr: energy constraints ---------------
+    ecstr = train_ecstr(torch, dev, ds, perms)
+    zoo_ecstr(torch, dev)
+    cli_ecstr(small)
+
     full = fused_rows["full"]
     kernels = [{
         "name": "fused_predict", "route": "cuda",
@@ -1441,6 +1733,7 @@ def main() -> None:
         "launches": launches, "launches_zoo_full": zoo_launches["fused_predict"],
         "launches_train_otf": launches_new["train_otf"],
         "launches_train_157k": launches_new["train_157k"],
+        "launches_train_ecstr_predict": ecstr["predict"]["fused_predict"],
         "max_abs_err": full["max_abs_err_F"],
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
@@ -1468,6 +1761,11 @@ def main() -> None:
             "replaces": f"mlff_tpu/ops/pallas_df64.py:{line}",
             "launches": df64_launches["train_df64"][name],
             "launches_zoo_full": zoo_launches[name],
+            "launches_train_ecstr_df64": ecstr["df64"][name],
+            "launches_train_ecstr_colblock": ecstr["colblock"][name],
+            "ecstr_shape": {k: df64_rows[(name, "ecstr")][k] for k in (
+                "n", "m", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "library_ms", "share_of_bound")},
             "max_abs_err": main_row["max_abs_err"],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

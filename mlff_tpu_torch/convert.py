@@ -148,6 +148,8 @@ def model_from_numpy(model) -> dict:
                            (n_train, D)),
         "perms": (np.asarray(model["perms"]).shape[1:], (n_atoms,)),
     }
+    if model.get("alphas_E") is not None:
+        checks["alphas_E"] = (np.asarray(model["alphas_E"]).shape, (n_train,))
     for key, (got, want) in checks.items():
         if tuple(got) != tuple(want):
             raise ValueError(f"model[{key!r}] has shape {got}, expected {want}")

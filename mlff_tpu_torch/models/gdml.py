@@ -8,7 +8,11 @@ device (cuda by default).  ``lam`` is bumped from the task's 1e-15 to 1e-10
 for the two CG solvers (reference train.py:865-866, 910-911); labels are
 normalized by their standard deviation (train.py:835-845).  The model dict
 has the JAX package's keys and sign convention (``alphas_F = -alpha_psd``),
-so npz model files are interchangeable between the two packages.
+so npz model files are interchangeable between the two packages.  With
+``use_E_cstr`` the labels gain the centred negative energies, the solve runs
+on the (n + N) energy-constrained system, the model stores
+``alphas_E = -alpha_psd[-N:]`` and its integration constant is the training
+energies' mean.
 """
 
 from __future__ import annotations
@@ -84,10 +88,18 @@ class Trainer:
         return spec, S, X, Jc, P_idx
 
     def labels(self, task: dict):
-        """Normalized force labels (train.py:835-845)."""
+        """Normalized force labels (train.py:835-845): (y, y_std,
+        E_train_mean).  With energy constraints the centred negative
+        energies are appended and ``E_train_mean`` is their mean, else
+        None."""
         y = np.asarray(task["F_train"], dtype=np.float64).ravel().copy()
+        E_train_mean = None
+        if task.get("use_E") and task.get("use_E_cstr"):
+            E_train = np.asarray(task["E_train"], dtype=np.float64).ravel()
+            E_train_mean = float(E_train.mean())
+            y = np.hstack((y, -E_train + E_train_mean))
         y_std = float(np.std(y))
-        return y / y_std, y_std
+        return y / y_std, y_std, E_train_mean
 
     @staticmethod
     def _pairwise_fits(n_train: int, n_perms: int) -> bool:
@@ -126,13 +138,17 @@ class Trainer:
         solver = str(task["solver_name"])
         if solver not in ("analytic", "cg", "cg_cholesky"):
             raise ValueError(f"unknown solver {solver!r}")
-        if task.get("use_E_cstr"):
-            raise NotImplementedError(
-                "energy-constrained training is ROADMAP module item 10b")
+        ecstr = bool(task.get("use_E_cstr"))
+        if ecstr and solver == "cg_cholesky":
+            # the JAX package passes no energy constraint to this solver and
+            # crashes reshaping the (n + N) labels into forces
+            raise ValueError("solver 'cg_cholesky' has no energy-constrained "
+                             "form; use 'cg' with str_preconditioner="
+                             "'cholesky'")
 
         t_setup = time.perf_counter()
         spec, S, X, Jc, P_idx = self.build_kernel_inputs(task)
-        y, y_std = self.labels(task)
+        y, y_std, E_train_mean = self.labels(task)
         log.info("train setup (descriptors+labels): %.2fs",
                  time.perf_counter() - t_setup)
 
@@ -151,7 +167,7 @@ class Trainer:
                                     float(task["lam"]), device=self.device)
             t0 = time.perf_counter()
             out = solve_analytic(
-                spec, cache, y, return_K=self.return_K,
+                spec, cache, y, return_K=self.return_K, use_E_cstr=ecstr,
                 cprsn_keep_atoms_idxs=task.get("cprsn_keep_atoms_idxs"))
             alphas_psd, K_dense = out if self.return_K else (out, None)
             info_solver = {"total_time_solve": time.perf_counter() - t0}
@@ -175,7 +191,8 @@ class Trainer:
                 flag_eigvals=flag_eigvals,
                 callback=callback,
                 save_progr_callback=self._wrap_ckpt(save_progr_callback, task,
-                                                    X, Jc, y, y_std),
+                                                    X, Jc, y, y_std,
+                                                    E_train_mean),
                 allow_restarts=allow_restarts,
                 svd_cache=svd_cache,
             )
@@ -216,12 +233,12 @@ class Trainer:
         self.last_info = info_solver
 
         t_model = time.perf_counter()
-        # model boundary: reference sign convention
-        alphas_F_ref = -alphas_psd
+        alphas_F_ref, alphas_E_ref = self._split_alphas(task, alphas_psd,
+                                                        X.shape[0])
         X_np, Jc_np = X.cpu().numpy(), Jc.cpu().numpy()
         model = self.create_model(
             task, solver, X_np, Jc_np, y_std, alphas_F_ref,
-            solver_resid=resid, solver_iters=num_iters,
+            alphas_E=alphas_E_ref, solver_resid=resid, solver_iters=num_iters,
             norm_y_train=float(np.linalg.norm(y)),
             inducing_pts_idxs=inducing,
         )
@@ -230,7 +247,8 @@ class Trainer:
              if isinstance(v, (int, float, bool, np.ndarray))})
 
         if model["use_E"]:
-            c = self._recov_int_const(model, task)
+            c = (self._recov_int_const(model, task) if E_train_mean is None
+                 else E_train_mean)
             if c is None:
                 model["use_E"] = False
             else:
@@ -316,26 +334,44 @@ class Trainer:
             model["e_unit"] = task["e_unit"]
         return model
 
-    def _wrap_ckpt(self, save_progr_callback, task, X, Jc, y, y_std):
+    @staticmethod
+    def _split_alphas(task, alphas_psd, n_train: int):
+        """The model boundary: PSD-convention coefficients -> (alphas_F,
+        alphas_E) in the reference's sign convention, alphas_E None without
+        energy constraints."""
+        alphas_psd = np.asarray(alphas_psd)
+        if task.get("use_E_cstr"):
+            return -alphas_psd[:-n_train], -alphas_psd[-n_train:]
+        return -alphas_psd, None
+
+    def _wrap_ckpt(self, save_progr_callback, task, X, Jc, y, y_std,
+                   E_train_mean=None):
         """Adapt the raw CG snapshot into an unconverged-model dict
-        (reference iterative_solver.py:919-954)."""
+        (reference iterative_solver.py:919-954).  An energy-constrained
+        iterate is split as ``train`` splits it, and its model takes
+        ``c = E_train_mean`` (the JAX package hands the whole (n + N)
+        iterate over as force coefficients and crashes)."""
         if save_progr_callback is None:
             return None
 
         def wrapped(alphas_psd, num_iters, resid, inducing_pts_idxs):
-            alphas_F = -np.asarray(alphas_psd)
+            alphas_F, alphas_E = self._split_alphas(task, alphas_psd,
+                                                    X.shape[0])
             X_np, Jc_np = X.cpu().numpy(), Jc.cpu().numpy()
             model = self.create_model(
-                task, "cg", X_np, Jc_np, y_std, alphas_F,
+                task, "cg", X_np, Jc_np, y_std, alphas_F, alphas_E=alphas_E,
                 solver_resid=resid, solver_iters=num_iters + 1,
                 norm_y_train=float(np.linalg.norm(y)),
                 inducing_pts_idxs=inducing_pts_idxs,
             )
-            pred = Predictor.from_alphas(task, X_np, Jc_np, alphas_F,
-                                         std=y_std, device=self.device)
-            E_pred, _ = pred.predict(np.asarray(task["R_train"]))
-            E_ref = np.squeeze(np.asarray(task["E_train"]))
-            model["c"] = float(np.sum(E_ref - E_pred) / E_ref.shape[0])
+            if E_train_mean is not None:
+                model["c"] = E_train_mean
+            else:
+                pred = Predictor.from_alphas(task, X_np, Jc_np, alphas_F,
+                                             std=y_std, device=self.device)
+                E_pred, _ = pred.predict(np.asarray(task["R_train"]))
+                E_ref = np.squeeze(np.asarray(task["E_train"]))
+                model["c"] = float(np.sum(E_ref - E_pred) / E_ref.shape[0])
             save_progr_callback(model)
 
         return wrapped

@@ -7,7 +7,9 @@ contraction batched over query geometries.
 ``fast=True`` routes the contraction through the fused kernel
 (``ops.fused_predict``): on a CUDA device it launches the hand-written kernel
 (a kernel that fails to build or launch raises), on the CPU it runs the
-kernel's plain PyTorch version.  Both paths are f64: the kernel keeps the
+kernel's plain PyTorch version.  A model with energy-constraint
+coefficients predicts through the f64 contraction whatever ``fast`` says,
+as in the JAX package.  Both paths are f64: the kernel keeps the
 (B, M) exponential weights out of device memory, not digits.
 
 Sign conventions follow the stored-model (reference) convention:
@@ -24,6 +26,9 @@ from .. import resolve_device
 from ..ops import descriptor as dsc
 from ..ops import kernel as knl
 from ..ops.fused_predict import desc_forces_fused
+from ..utils.log import get_logger
+
+log = get_logger(__name__)
 
 
 class Predictor:
@@ -81,11 +86,14 @@ class Predictor:
             batch_size = max(1, min(512, int(2**27 / max(M, 1))))
         self.batch_size = batch_size
 
-        if fast and self.vE_lin is not None:
-            raise NotImplementedError(
-                "the fused prediction kernel has no energy-constraint "
-                "terms; use fast=False for energy-constrained models")
-        self.fast = bool(fast)
+        # the JAX package's routing rule (models/predict.py:106-109): the
+        # fused contraction carries no energy-constraint terms, so a model
+        # with them predicts through the f64 contraction
+        self.fast = bool(fast) and self.vE_lin is None
+        if fast and not self.fast:
+            log.info("Predictor(fast=True): the model carries energy "
+                     "constraints, which the fused kernel does not; "
+                     "predicting through the f64 contraction")
 
     @classmethod
     def from_alphas(cls, task_like: dict, R_desc, R_d_desc, alphas_F,

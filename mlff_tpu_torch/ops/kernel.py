@@ -22,9 +22,11 @@ single columns serve the pivoted-Cholesky, eigenvector and analytic solvers.
 Large molecules take inflation-free routes: compressed columns and diagonal
 (``assemble_columns_compressed*``, ``kernel_diag_compressed``,
 ``kernel_column_compressed``) and the square all-pairs layout
-(``SquareCache``, ``matvec_psd_square``, ``assemble_columns_square``).  Not
-in this module yet: energy constraints and the mixed/ozaki precision
-engines (ROADMAP module items 10b, 10d and 11).
+(``SquareCache``, ``matvec_psd_square``, ``assemble_columns_square``).
+Energy constraints extend the system by one row and column per training
+point (``matvec_psd_ecstr``, ``assemble_*_ecstr``, ``kernel_diag_ecstr``),
+on the pairwise cache only.  Not in this module yet: the mixed/ozaki
+precision engines (ROADMAP module items 10d and 11).
 """
 
 from __future__ import annotations
@@ -861,16 +863,24 @@ def assemble_full(
     """Full dense PSD kernel matrix (n, n) on the cache's device, assembled
     in row tiles.  Equivalent to -1 * reference _assemble_kernel_mat with all
     columns (train.py:1121-1308).  ``add_ridge`` optionally adds c*I."""
-    N, T = cache.n_train, spec.dim_i
+    K = torch.empty((cache.n, cache.n), dtype=cache.X.dtype,
+                    device=cache.device)
+    _assemble_full_into(spec.dim_i, cache, K, tile)
+    if add_ridge is not None:
+        K.diagonal().add_(add_ridge)
+    return K
+
+
+def _assemble_full_into(T: int, cache: KernelCache, K: torch.Tensor,
+                        tile: int) -> None:
+    """Write the dense (n, n) PSD kernel into ``K`` (a view may be given),
+    ``tile`` training points of rows at a time."""
+    N = cache.n_train
     all_idx = torch.arange(N, device=cache.device)
-    K = torch.empty((N * T, N * T), dtype=cache.X.dtype, device=cache.device)
     for start in range(0, N, tile):
         I_idx = all_idx[start:start + tile]
         K[start * T:(start + tile) * T] = assemble_block(T, cache, I_idx,
                                                          all_idx)
-    if add_ridge is not None:
-        K.diagonal().add_(add_ridge)
-    return K
 
 
 def _point_block_cols(spec_dim_i: int, cache: KernelCache,
@@ -991,3 +1001,184 @@ def kernel_column_compressed(spec_dim_i: int, cache: KernelCache,
     out = _columns_compressed_chunk(cache, j, b, x)[0]
     out[col] += cache.lam
     return out
+
+
+# ---------------------------------------------------------------------------
+# Energy-constraint extension (use_E_cstr)
+# ---------------------------------------------------------------------------
+#
+# With energy constraints the system grows by n_train rows and columns that
+# couple force coefficients to per-point energies (reference train.py:212-234
+# for assembly, predict.py:210-218 for the matvec).  Every extra kernel value
+# is an elementwise function of the cached pairwise weights:
+#   cross block  K_fe ~ A_exp1 * delta          (gradient cross-kernel)
+#   energy block K_ee ~ (1 + d(1 + d/3)) e^-d   (plain Matern-5/2)
+# so every function below needs the pairwise cache, as in the JAX package.
+
+
+def require_pairwise(cache: KernelCache) -> None:
+    """Raise ValueError unless the cache holds the (N, M) pairwise weights,
+    from which every energy-constraint block is recovered."""
+    if cache.A_exp is None:
+        raise ValueError(
+            "energy constraints need the pairwise kernel cache "
+            "(build_cache(pairwise=True)): the energy blocks are recovered "
+            "from its (N, M) weights, and an on-the-fly cache has none")
+
+
+def _ecstr_mats(cache: KernelCache):
+    """(K_ee (N, M), dist) recovered elementwise from the cached matrices."""
+    require_pairwise(cache)
+    dist = cache.A_exp1 / cache.A_exp - 1.0
+    e = cache.A_exp * (3.0 * cache.sig**2 / 5.0)
+    K_ee = (1.0 + dist * (1.0 + dist / 3.0)) * e
+    return K_ee, dist
+
+
+def matvec_ref_ecstr(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
+    """Reference-convention matvec of the energy-constrained kernel:
+    v = [v_F (n,), v_E (N,)] -> [f_out (n,), -e_out (N,)], the reference's
+    ``_K_vec`` composition (iterative_solver.py:416-443: predict with alphas
+    (v_F, v_E), stack forces with negated energies)."""
+    K_ee, _ = _ecstr_mats(cache)
+    N = cache.n_train
+    A = cache.S.shape[1]
+    v_F, v_E = v[:N * A * 3], v[N * A * 3:]
+    w = d_desc_dot_vec(cache.Jc, cache.S, v_F.reshape(N, A, 3))   # (N, D)
+    wt = perm_expand_w(w, cache.P_idx)                            # (M, D)
+    vE_lin = torch.repeat_interleave(v_E, cache.n_perms)          # (M,)
+    # e_out starts as sum_m A_exp1 dot / q (predict.py:207)
+    F_desc, e_out = _desc_forces_x(cache.Xqt, cache.sig, cache.Xq,
+                                   cache.A_exp, cache.A_exp1, wt)
+    # energy-coefficient contribution to forces: sum_m vE_m A_exp1[b, m]
+    # delta, delta unscaled by q (reference predict.py:210-213)
+    q = SQRT5 / cache.sig
+    H = cache.A_exp1 * vE_lin[None, :]                            # (N, M)
+    F_desc = F_desc + (cache.Xq * torch.sum(H, dim=1, keepdim=True)
+                       - H @ cache.Xqt) / q
+    out_F = vec_dot_d_desc(cache.Jc, cache.S, F_desc)
+    e_out = e_out + K_ee @ vE_lin                     # predict.py:214-218
+    return torch.cat([out_F.reshape(-1), -e_out])
+
+
+def matvec_psd_ecstr(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
+    """(K + lam I) v for the energy-constrained PSD system."""
+    return cache.lam * v - matvec_ref_ecstr(cache, v)
+
+
+def assemble_ecstr_blocks(spec_dim_i: int, cache: KernelCache):
+    """Dense energy-constraint blocks in the PSD convention:
+    (K_fe (n, N), K_ee_sym (N, N)), the extra columns and rows of the
+    extended kernel (reference worker train.py:212-234, negated).
+
+    The cross block goes column point by column point, 64 at a time, so
+    that no (N, M, D) array forms: per block three (N, 64 P, D) transients.
+    """
+    K_ee, _ = _ecstr_mats(cache)                      # (N, M)
+    N = cache.n_train
+    P = cache.n_perms
+    q = SQRT5 / cache.sig
+    # sum over the perm copies of each column point -> (N, N); the reference
+    # writes K[E_i, E_j] = -(...) summed over perms
+    K_ee_sym = K_ee.reshape(N, N, P).sum(dim=2)
+    del K_ee
+    # cross block: for column point j (energy) and rows (i, t):
+    #   K_ref[F(i,t), E(j)] = sum_p A_exp1[i,(j,p)] (J_i^T delta_i,(j,p))[t]
+    # with delta = (Xq_i - Xqt_m) / q, unscaled
+    A1 = cache.A_exp1
+    cols = []
+    for j0 in range(0, N, 64):
+        j1 = min(j0 + 64, N)
+        mm = slice(j0 * P, j1 * P)
+        A1b = A1[:, mm]                                   # (N, Mb)
+        g1 = cache.Xq[:, None, :] * A1b[:, :, None]       # (N, Mb, D)
+        g2 = A1b[:, :, None] * cache.Xqt[mm][None, :, :]
+        g = (g1 - g2) / q
+        del g1, g2
+        g = g.reshape(N, j1 - j0, P, -1).sum(dim=2)       # (N, Cb, D)
+        blk = vec_dot_d_desc(cache.Jc[:, None], cache.S, g)   # (N, Cb, A, 3)
+        cols.append(blk.reshape(N, j1 - j0, -1))
+    K_fe_ref = torch.cat(cols, dim=1)                     # (N, N, 3A)
+    K_fe_ref = K_fe_ref.permute(0, 2, 1).reshape(N * spec_dim_i, N)
+    # the row-Jacobian form equals the reference's column-Jacobian form under
+    # group closure (the worker's -sum over permuted J~ at train.py:228,
+    # relabelled); the PSD convention then negates both blocks
+    return -K_fe_ref, K_ee_sym
+
+
+def assemble_columns_ecstr(
+    spec: DescriptorSpec,
+    cache: KernelCache,
+    col_idxs: np.ndarray,
+    chunk: int = 8,
+    K_fe: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Columns of the energy-constrained PSD kernel restricted to force
+    columns (col < n): (n + N, k), the force-block columns with their
+    energy-row extension appended.  ``K_fe`` (n, N) from
+    ``assemble_ecstr_blocks`` may be passed in, so that a build that takes
+    its columns in several calls assembles it once."""
+    col_idxs = np.asarray(col_idxs)
+    if col_idxs.max() >= cache.n:
+        raise ValueError("only force columns are supported as inducing points")
+    if K_fe is None:
+        K_fe, _ = assemble_ecstr_blocks(spec.dim_i, cache)
+    top = assemble_columns(spec, cache, col_idxs, chunk=chunk)   # (n, k)
+    idx = torch.as_tensor(col_idxs, device=cache.device)
+    return torch.cat([top, K_fe[idx].T], dim=0)
+
+
+def kernel_diag_ecstr(spec_dim_i: int, cache: KernelCache) -> torch.Tensor:
+    """diag of the energy-constrained PSD kernel (n + N,), no ridge:
+    [diag(K_ff), diag(K_ee_sym)] (reference iterative_cholesky.py:351-373
+    appends the energy-block diagonal)."""
+    K_ee, _ = _ecstr_mats(cache)                      # (N, M = N P)
+    N = cache.n_train
+    i = torch.arange(N, device=cache.device)
+    d_ee = K_ee.reshape(N, N, cache.n_perms)[i, i].sum(dim=1)
+    return torch.cat([kernel_diag(spec_dim_i, cache), d_ee])
+
+
+def assemble_columns_ecstr_any(
+    spec: DescriptorSpec,
+    cache: KernelCache,
+    col_idxs: np.ndarray,
+    chunk: int = 8,
+    blocks: tuple | None = None,
+) -> torch.Tensor:
+    """Columns of the energy-constrained PSD kernel for any sorted column
+    indices in [0, n + N), force and energy columns mixed (the
+    pivoted-Cholesky family pivots over the whole extended diagonal).
+    Returns (n + N, k), no ridge.  ``blocks`` = ``assemble_ecstr_blocks``'s
+    (K_fe, K_ee_sym) may be passed in, as ``K_fe`` is to
+    ``assemble_columns_ecstr``."""
+    col_idxs = np.asarray(col_idxs)
+    if not np.array_equal(col_idxs, np.sort(col_idxs)):
+        raise ValueError("column indices must be sorted")
+    n = cache.n
+    K_fe, K_ee_sym = blocks if blocks is not None else assemble_ecstr_blocks(
+        spec.dim_i, cache)
+    f_idx = col_idxs[col_idxs < n]
+    e_idx = torch.as_tensor(col_idxs[col_idxs >= n] - n, device=cache.device)
+    parts = []
+    if len(f_idx):
+        parts.append(assemble_columns_ecstr(spec, cache, f_idx, chunk=chunk,
+                                            K_fe=K_fe))
+    if len(e_idx):
+        parts.append(torch.cat([K_fe[:, e_idx], K_ee_sym[:, e_idx]], dim=0))
+    # sorted input: every force column precedes every energy column
+    return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+
+
+def assemble_full_ecstr(spec: DescriptorSpec, cache: KernelCache,
+                        tile: int = 32) -> torch.Tensor:
+    """Full PSD kernel with the energy-constraint rows and columns appended:
+    (n + N, n + N) (reference train.py:1205-1208), written into one array."""
+    n, N = cache.n, cache.n_train
+    K_fe, K_ee = assemble_ecstr_blocks(spec.dim_i, cache)
+    K = torch.empty((n + N, n + N), dtype=cache.X.dtype, device=cache.device)
+    _assemble_full_into(spec.dim_i, cache, K[:n, :n], tile)
+    K[:n, n:] = K_fe
+    K[n:, :n] = K_fe.T
+    K[n:, n:] = K_ee
+    return K

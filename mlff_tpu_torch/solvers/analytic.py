@@ -46,11 +46,9 @@ def solve_analytic(
     With ``cprsn_keep_atoms_idxs`` the kernel is compressed along symmetric
     degrees of freedom: only the partials of the kept atoms form columns and
     the (n, m) system is solved by least squares
-    (reference analytic.py:58-76, 183-193).
+    (reference analytic.py:58-76, 183-193).  With ``use_E_cstr`` the dense
+    system is the energy-constrained one, (n + N, n + N).
     """
-    if use_E_cstr:
-        raise NotImplementedError(
-            "the energy-constrained analytic solve is ROADMAP module item 10b")
     y_dev = torch.as_tensor(np.asarray(y), dtype=torch.float64,
                             device=cache.device)
     if cprsn_keep_atoms_idxs is not None:
@@ -63,7 +61,8 @@ def solve_analytic(
         K = knl.assemble_columns(spec, cache, np.sort(col_idxs))
         alphas = _lstsq(K, y_dev)
     else:
-        K = knl.assemble_full(spec, cache)
+        K = (knl.assemble_full_ecstr(spec, cache) if use_E_cstr
+             else knl.assemble_full(spec, cache))
         # the ridge goes onto the diagonal of one f64 copy of K (K itself
         # unless it is returned): no dense identity, the same bits as
         # K + reg * I

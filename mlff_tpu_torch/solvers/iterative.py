@@ -13,11 +13,12 @@ sgdml/solvers/iterative_inpoints.py:1011-1066):
   * optional stagnation-triggered restarts that grow the inducing set and
     warm-start from the last iterate (off by default, like the reference),
   * the square all-pairs matvec for large-A molecules
-    (``ops.kernel.SquareCache``), chosen by the JAX package's rule.
+    (``ops.kernel.SquareCache``), chosen by the JAX package's rule,
+  * energy constraints (``task["use_E_cstr"]``): the system of n + N rows,
+    on the pairwise cache and the packed matvec only, as in the JAX package.
 
 Not in this module yet (each raises NotImplementedError naming its ROADMAP
-item): energy constraints, the reduced-precision matvecs and the ozaki
-apply.
+item): the reduced-precision matvecs and the ozaki apply.
 """
 
 from __future__ import annotations
@@ -65,9 +66,6 @@ class IterativeResult:
 def _check_task(task: dict) -> str:
     """Raise for the task options the port does not have yet; returns
     ``apply_impl``."""
-    if task.get("use_E_cstr"):
-        raise NotImplementedError(
-            "energy-constrained solves are ROADMAP module item 10b")
     apply_impl = str(task.get("apply_impl", "xla"))
     if apply_impl == "ozaki":
         raise NotImplementedError(
@@ -92,6 +90,7 @@ def build_preconditioner(
     """Build (P_apply, inducing_pts_idxs, info) for one strategy string."""
     task = task or {}
     apply_impl = _check_task(task)
+    use_E_cstr = bool(task.get("use_E_cstr", False))
     info: dict = {}
     t0 = time.perf_counter()
 
@@ -106,7 +105,8 @@ def build_preconditioner(
         return pc.df64_from_split(P, components=comps)
 
     if strategy == "cholesky":
-        res, info_chol = pivoted_cholesky(spec, cache, max_rank=k)
+        res, info_chol = pivoted_cholesky(spec, cache, max_rank=k,
+                                          use_E_cstr=use_E_cstr)
         P = _factor_precon(res.L)
         inducing = np.arange(k)  # reference uses a size marker here
         info.update(info_chol)
@@ -114,7 +114,8 @@ def build_preconditioner(
     elif strategy == "cholesky_panel":
         # greedy panel variant: top-`block` residual-diagonal pivots per
         # round, rank-block product updates
-        res, info_chol = panel_pivoted_cholesky(spec, cache, max_rank=k)
+        res, info_chol = panel_pivoted_cholesky(spec, cache, max_rank=k,
+                                                use_E_cstr=use_E_cstr)
         P = _factor_precon(res.L)
         inducing = np.sort(np.asarray(info_chol["pivots"]))
         info.update(info_chol)
@@ -122,7 +123,8 @@ def build_preconditioner(
     elif strategy == "rpcholesky":
         # blocked randomly-pivoted variant (no reference counterpart;
         # arXiv:2410.03969-style block sampling)
-        res, info_chol = block_rp_cholesky(spec, cache, max_rank=k)
+        res, info_chol = block_rp_cholesky(spec, cache, max_rank=k,
+                                           use_E_cstr=use_E_cstr)
         P = _factor_precon(res.L)
         inducing = np.sort(np.asarray(info_chol["pivots"]))
         info.update(info_chol)
@@ -130,7 +132,8 @@ def build_preconditioner(
     elif strategy in ("eigvec_precon", "eigvec_precon_block_diagonal",
                       "eigvec_precon_atomic_interactions"):
         P = pc.eigvec_preconditioner(spec, cache, k, lam, variant=strategy,
-                                     svd_cache=svd_cache)
+                                     svd_cache=svd_cache,
+                                     use_E_cstr=use_E_cstr)
         inducing = np.arange(k)
 
     elif strategy in LEV_STRATEGIES:
@@ -154,6 +157,7 @@ def build_preconditioner(
             p = lev / lev.sum()
             inducing = np.sort(rng.choice(n_Fcols, size=k, replace=False, p=p))
         else:  # lev_scores / inverse_lev / lev_random
+            # with energy constraints the scores come from the force block
             lev, order = pc.leverage_scores(spec, cache, lam, n_inducing_pts,
                                             rng)
             inducing = pc.select_by_leverage(strategy, lev, order, k, rng)
@@ -161,7 +165,7 @@ def build_preconditioner(
         if inducing.shape != (k,):
             raise RuntimeError("incorrect number of inducing points")
         P = pc.nystrom_preconditioner(
-            spec, cache, inducing, lam,
+            spec, cache, inducing, lam, use_E_cstr=use_E_cstr,
             method=str(task.get("nystrom_method", "chol_host")),
             rank_tol=float(task.get("rank_tol", 1e-10)),
             apply_impl=apply_impl,
@@ -223,9 +227,18 @@ def solve_iterative(
     if matvec_dtype != "float64":
         raise NotImplementedError(
             f"matvec_dtype {matvec_dtype!r} is ROADMAP module items 10-11")
+    use_E_cstr = bool(task.get("use_E_cstr", False))
+    if use_E_cstr:
+        knl.require_pairwise(cache)
+        if flag_eigvals:
+            # the JAX package assembles the force-only K there but applies
+            # the (n + N) preconditioner to its columns, and crashes
+            raise ValueError(
+                "flag_eigvals has no energy-constrained form: the spectrum "
+                "diagnostic assembles the force-only (n, n) kernel")
     t_start = time.perf_counter()
     rng = np.random.default_rng(seed)
-    n = cache.n
+    n = cache.n + (cache.n_train if use_E_cstr else 0)
     n_train = cache.n_train
     dim_i = spec.dim_i
     lam = float(cache.lam)
@@ -236,6 +249,8 @@ def solve_iterative(
     num_iters0 = int(task.get("solver_iters", 0) or 0)
     if task.get("alphas0_F") is not None:
         alphas0 = -np.asarray(task["alphas0_F"])  # reference convention
+        if use_E_cstr and task.get("alphas0_E") is not None:
+            alphas0 = np.hstack([alphas0, -np.asarray(task["alphas0_E"])])
 
     if break_percentage is None:
         n_inducing_pts = min(n_train, int(task.get("n_inducing_pts_init", 25)))
@@ -259,10 +274,14 @@ def solve_iterative(
         info["eigvals"] = compute_precon_spectrum(spec, cache, P_apply)
         info["eigvals_K"] = compute_precon_spectrum(spec, cache, None)
 
-    matvec = functools.partial(knl.matvec_psd, cache)
+    matvec = functools.partial(
+        knl.matvec_psd_ecstr if use_E_cstr else knl.matvec_psd, cache)
     info["matvec_impl"] = "packed"
     impl = str(task.get("matvec_impl", "auto"))
-    if impl == "square" or (impl == "auto" and _square_matvec_wins(spec, cache)):
+    # the square layout has no energy-constrained form (nor in the JAX
+    # package): energy constraints keep the packed matvec, also when forced
+    if not use_E_cstr and (impl == "square" or (
+            impl == "auto" and _square_matvec_wins(spec, cache))):
         # large-A molecules: the square all-pairs layout replaces the dense
         # incidence-matrix products (ops.kernel.SquareCache)
         sq = knl.build_cache_square(
@@ -323,7 +342,7 @@ def solve_iterative(
         # rebuild with the SAME configuration as the initial build: a
         # restart must not silently change preconditioner semantics
         P_apply = pc.nystrom_preconditioner(
-            spec, cache, inducing, lam,
+            spec, cache, inducing, lam, use_E_cstr=use_E_cstr,
             method=str(task.get("nystrom_method", "chol_host")),
             rank_tol=float(task.get("rank_tol", 1e-10)),
             apply_impl=str(task.get("apply_impl", "xla")),

@@ -19,8 +19,11 @@ iterative_cholesky.py:115-156).  Three factorizations of (K + lam I):
     proportion to the residual diagonal (cf. arXiv:2410.03969).
 
 Large-D molecules take their columns and diagonal from the inflation-free
-compressed routes of ``ops.kernel``.  Energy-constrained systems raise
-NotImplementedError naming ROADMAP module item 10b.
+compressed routes of ``ops.kernel``.  With ``use_E_cstr`` each factorizes the
+energy-constrained system (n + N rows; reference
+iterative_cholesky.py:351-373): force columns are assembled as before, energy
+columns are read from the dense (n, N) and (N, N) energy blocks, which each
+build assembles once.
 """
 
 from __future__ import annotations
@@ -46,29 +49,31 @@ class PivotedCholeskyResult(NamedTuple):
     remaining_diag: torch.Tensor  # (n,) residual diagonal after k steps
 
 
-def _no_ecstr(use_E_cstr: bool) -> None:
-    if use_E_cstr:
-        raise NotImplementedError(
-            "pivoted Cholesky of the energy-constrained system is ROADMAP "
-            "module item 10b")
-
-
-def _seed_diag(spec: DescriptorSpec, cache: knl.KernelCache, diag):
+def _seed_diag(spec: DescriptorSpec, cache: knl.KernelCache, diag,
+               use_E_cstr: bool = False):
     if diag is None:
-        return knl.kernel_diag_any(spec, cache)
+        return (knl.kernel_diag_ecstr(spec.dim_i, cache) if use_E_cstr
+                else knl.kernel_diag_any(spec, cache))
     return torch.as_tensor(diag, dtype=torch.float64, device=cache.device)
 
 
-def _pivoted_cholesky_device(
-    spec_dim_i: int,
-    cache: knl.KernelCache,
-    diag0: torch.Tensor,
-    max_rank: int,
-    compressed: bool = False,
-) -> PivotedCholeskyResult:
-    """The greedy loop.  Every step is queued on the device without a host
-    read: the pivot ``p`` is a (1,) index tensor throughout.  ``compressed``
-    takes the columns from ``kernel_column_compressed`` (large D)."""
+def _column_assembler(spec: DescriptorSpec, cache: knl.KernelCache,
+                      use_E_cstr: bool):
+    """The batched column assembly of the block builders: (n, b) force
+    columns, or with ``use_E_cstr`` (n + N, b) columns of the extended
+    system, its energy blocks assembled once here for every round."""
+    if not use_E_cstr:
+        return lambda idx: knl.assemble_columns(spec, cache, idx)
+    blocks = knl.assemble_ecstr_blocks(spec.dim_i, cache)
+    return lambda idx: knl.assemble_columns_ecstr_any(spec, cache, idx,
+                                                      blocks=blocks)
+
+
+def _greedy_loop(diag0: torch.Tensor, max_rank: int,
+                 getcol) -> PivotedCholeskyResult:
+    """The greedy loop over the columns ``getcol(p)`` of (K + lam I), p a
+    (1,) index tensor.  Every step is queued on the device without a host
+    read: the pivot stays a device tensor throughout."""
     n = diag0.shape[0]
     dev, dtype = diag0.device, diag0.dtype
     L = torch.zeros((n, max_rank), dtype=dtype, device=dev)
@@ -85,7 +90,6 @@ def _pivoted_cholesky_device(
     eps_floor = torch.max(diag0) * 1e-30
     neg_inf = torch.full((), -torch.inf, dtype=dtype, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
-    getcol = knl.kernel_column_compressed if compressed else knl.kernel_column
 
     for m in range(max_rank):
         # greedy pivot: largest remaining diagonal among unchosen columns
@@ -94,7 +98,7 @@ def _pivoted_cholesky_device(
         ok = pval > eps_floor
         l_mm = torch.sqrt(torch.maximum(pval, eps_floor))
 
-        col = getcol(spec_dim_i, cache, p)                # includes +lam e_p
+        col = getcol(p)                                   # includes +lam e_p
 
         # Schur correction from the m filled columns: one (n, m) x (m,) GEMV
         newcol = col
@@ -114,6 +118,48 @@ def _pivoted_cholesky_device(
     return PivotedCholeskyResult(L, pivots, pvals, diag)
 
 
+def _pivoted_cholesky_device(
+    spec_dim_i: int,
+    cache: knl.KernelCache,
+    diag0: torch.Tensor,
+    max_rank: int,
+    compressed: bool = False,
+) -> PivotedCholeskyResult:
+    """The greedy loop over (K + lam I).  ``compressed`` takes the columns
+    from ``kernel_column_compressed`` (large D)."""
+    getcol = knl.kernel_column_compressed if compressed else knl.kernel_column
+    return _greedy_loop(diag0, max_rank,
+                        lambda p: getcol(spec_dim_i, cache, p))
+
+
+def _pivoted_cholesky_device_ecstr(
+    spec_dim_i: int,
+    cache: knl.KernelCache,
+    diag0: torch.Tensor,
+    K_fe: torch.Tensor,      # (n, N) dense energy-constraint cross block
+    K_ee: torch.Tensor,      # (N, N) dense energy-constraint block
+    max_rank: int,
+) -> PivotedCholeskyResult:
+    """The greedy loop over the energy-constrained extended system
+    (n + N,): force columns are assembled matrix-free as in the plain loop,
+    energy columns are reads of the dense energy blocks.  The pivot stays a
+    device tensor, so both candidates are formed and the pivot's kind picks
+    one (the JAX package branches with ``lax.cond``; the column is the
+    same)."""
+    n_f = cache.n
+
+    def getcol(p):
+        pf = torch.clamp(p, max=n_f - 1)                  # as a force column
+        col_f = torch.cat([knl.kernel_column(spec_dim_i, cache, pf),
+                           K_fe[pf][0]])                  # + lam e_p inside
+        j = torch.clamp(p - n_f, min=0)                   # as an energy column
+        col_e = torch.cat([K_fe[:, j][:, 0], K_ee[:, j][:, 0]])
+        col_e[p] += cache.lam
+        return torch.where(p < n_f, col_f, col_e)
+
+    return _greedy_loop(diag0, max_rank, getcol)
+
+
 def pivoted_cholesky(
     spec: DescriptorSpec,
     cache: knl.KernelCache,
@@ -126,17 +172,23 @@ def pivoted_cholesky(
     The seed diagonal intentionally omits the ridge term, mirroring the
     reference's mixed convention (the diagonal from
     iterative_cholesky._assemble_kernel_mat_diag has no +lam, the extracted
-    columns do), so the pivot order is the reference's.
+    columns do), so the pivot order is the reference's.  With ``use_E_cstr``
+    the factorization runs over the energy-constrained extended system.
 
     Returns the factor plus an info dict in the reference's
     ``info_cholesky`` schema (incomplete_cholesky.py:86-88).
     """
-    _no_ecstr(use_E_cstr)
     t0 = time.perf_counter()
-    diag = _seed_diag(spec, cache, diag)
-    # large-D molecules: columns without Jacobian inflation
-    res = _pivoted_cholesky_device(spec.dim_i, cache, diag, max_rank,
-                                   compressed=knl._is_large_D(spec, cache))
+    diag = _seed_diag(spec, cache, diag, use_E_cstr)
+    if use_E_cstr:
+        K_fe, K_ee = knl.assemble_ecstr_blocks(spec.dim_i, cache)
+        res = _pivoted_cholesky_device_ecstr(spec.dim_i, cache, diag, K_fe,
+                                             K_ee, max_rank)
+        del K_fe, K_ee
+    else:
+        # large-D molecules: columns without Jacobian inflation
+        res = _pivoted_cholesky_device(spec.dim_i, cache, diag, max_rank,
+                                       compressed=knl._is_large_D(spec, cache))
     # the first host read since the loop began; it also waits for the device
     min_pivot = float(res.pivot_values.min()) if max_rank > 0 else float("inf")
     elapsed = time.perf_counter() - t0
@@ -211,11 +263,11 @@ def block_rp_cholesky(
     from ``numpy.random.default_rng(seed)``, the residual diagonal is kept
     on the host, so the same seed draws the JAX package's pivots.
     """
-    _no_ecstr(use_E_cstr)
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed)
     dev = cache.device
-    diag = _seed_diag(spec, cache, diag)
+    diag = _seed_diag(spec, cache, diag, use_E_cstr)
+    assemble = _column_assembler(spec, cache, use_E_cstr)
     n = diag.shape[0]
 
     pivots_all: list[np.ndarray] = []
@@ -239,7 +291,7 @@ def block_rp_cholesky(
         b = len(idx)
         idx_dev = torch.as_tensor(idx, device=dev)
 
-        cols = knl.assemble_columns(spec, cache, idx)        # (n, b), no ridge
+        cols = assemble(idx)                                 # (n, b), no ridge
         cols = _add_ridge(cols, idx_dev, float(cache.lam))
         Lb = _rp_block_update(L[:, :off], cols, idx_dev)     # (n, b)
         Lb_host_diag = torch.sum(Lb * Lb, dim=1).cpu().numpy()
@@ -280,10 +332,10 @@ def panel_pivoted_cholesky(
     depth by the block size and deviates from the exact greedy order only
     through the staleness of the ranking within one round.
     """
-    _no_ecstr(use_E_cstr)
     t0 = time.perf_counter()
     dev = cache.device
-    diag = _seed_diag(spec, cache, diag)
+    diag = _seed_diag(spec, cache, diag, use_E_cstr)
+    assemble = _column_assembler(spec, cache, use_E_cstr)
     n = diag.shape[0]
 
     pivots_all: list[np.ndarray] = []
@@ -304,7 +356,7 @@ def panel_pivoted_cholesky(
         idx = np.sort(order)
         idx_dev = torch.as_tensor(idx, device=dev)
 
-        cols = knl.assemble_columns(spec, cache, idx)        # (n, b), no ridge
+        cols = assemble(idx)                                 # (n, b), no ridge
         cols = _add_ridge(cols, idx_dev, float(cache.lam))
         corr = _schur_correct(L[:, :off], cols, idx_dev)     # (n, b)
         A_ss = corr[idx_dev].cpu().numpy()                   # (b, b)

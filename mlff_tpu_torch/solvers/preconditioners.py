@@ -25,9 +25,11 @@ PyTorch port of the main slice of ``mlff_tpu.solvers.preconditioners``
     variants), ``rank_k_leverage_scores`` and ``jacobi_preconditioner``.  The
     dense kernel and its SVD stay on the cache's device.
 
-All builders work in the PSD convention (K + lam*I).  Not in this module yet
-(each raises NotImplementedError naming its ROADMAP item): energy
-constraints, and the ozaki apply and factor-build engines.
+All builders work in the PSD convention (K + lam*I).  With ``use_E_cstr`` the
+Nystrom columns (force columns still) and the eigenvector family's dense
+kernel span the energy-constrained system of n + N rows.  Not in this module
+yet (it raises NotImplementedError naming its ROADMAP item): the ozaki apply
+and factor-build engines.
 """
 
 from __future__ import annotations
@@ -550,22 +552,32 @@ def _nystrom_factor_split_colblocked(
     lam: float,
     rank_tol: float,
     block_cols: int,
+    use_E_cstr: bool = False,
 ) -> tuple[tuple, torch.Tensor, dict]:
     """Column-blocked variant of ``_nystrom_factor_split``: K_nm is
     assembled, whitened in place and kept as column blocks of <= block_cols,
     never one (n, m) buffer.  Same math and the same self-consistency
     discipline (the inner matrix is the Gram of the stored blocks, guarded
     by a probe of every diagonal entry with a plain f64 column dot).  Only
-    'chol' whitening: the in-place sweep needs W1 upper triangular.
+    'chol' whitening: the in-place sweep needs W1 upper triangular.  With
+    ``use_E_cstr`` the blocks are columns of the energy-constrained system,
+    its (n, N) cross block assembled once for all of them.
     Returns (blocks, W2, info)."""
     inducing_idxs = np.sort(np.asarray(inducing_idxs))
     m = len(inducing_idxs)
     dev = cache.device
     offs = list(range(0, m, block_cols))
     t = _StageTimer(dev)
-    blocks = [knl.assemble_columns(spec, cache,
-                                   inducing_idxs[off:off + block_cols])
-              for off in offs]
+    if use_E_cstr:
+        K_fe, _ = knl.assemble_ecstr_blocks(spec.dim_i, cache)
+        blocks = [knl.assemble_columns_ecstr(
+            spec, cache, inducing_idxs[off:off + block_cols], K_fe=K_fe)
+            for off in offs]
+        del K_fe
+    else:
+        blocks = [knl.assemble_columns(spec, cache,
+                                       inducing_idxs[off:off + block_cols])
+                  for off in offs]
     t.mark("assemble")
     idxs_dev = torch.as_tensor(inducing_idxs, device=dev)
     K_mm = np.concatenate([K_c[idxs_dev].cpu().numpy() for K_c in blocks],
@@ -724,10 +736,9 @@ def nystrom_preconditioner(
     with 'df64' the blocks become one 2-component df64 factor).  The JAX
     package also switches to blocks on its own above a TPU per-buffer
     ceiling (ROADMAP module item 13); the port only when asked.
+    ``use_E_cstr``: the columns span the energy-constrained system (n + N
+    rows); the inducing columns stay force columns.
     """
-    if use_E_cstr:
-        raise NotImplementedError(
-            "energy-constrained columns are ROADMAP module item 10b")
     if method not in ("chol_host", "eigh", "chol"):
         raise ValueError(f"unknown nystrom method {method!r}")
     if apply_impl == "ozaki" or os.environ.get("MLFF_BUILD_GEMM") == "ozaki":
@@ -742,7 +753,8 @@ def nystrom_preconditioner(
         if method == "chol":
             raise ValueError("nystrom method 'chol' has no column-blocked form")
         Bs, W2, info = _nystrom_factor_split_colblocked(
-            spec, cache, inducing_idxs, lam, rank_tol, block_cols)
+            spec, cache, inducing_idxs, lam, rank_tol, block_cols,
+            use_E_cstr=use_E_cstr)
         Bs, W2 = _pad_colblocks(Bs, W2)
         info = dict(info, factorization_s=time.perf_counter() - t0)
         log.info("nystrom build (colblock x%d): %.2fs", len(Bs),
@@ -751,7 +763,10 @@ def nystrom_preconditioner(
             return df64_from_colblocks(Bs, W2, lam, info)
         return WoodburyColBlockPreconditioner(
             Bs=Bs, W2=W2, lam=float(lam), info=dict(info, apply_impl="xla"))
-    K_nm = knl.assemble_columns(spec, cache, inducing_idxs)   # (n, m) PSD
+    if use_E_cstr:
+        K_nm = knl.assemble_columns_ecstr(spec, cache, inducing_idxs)
+    else:
+        K_nm = knl.assemble_columns(spec, cache, inducing_idxs)  # (n, m) PSD
     if cache.device.type == "cuda":
         torch.cuda.synchronize(cache.device)
     t1 = time.perf_counter()
@@ -870,21 +885,27 @@ def rank_k_leverage_scores(
     return torch.linalg.norm(U[:, :k], dim=1).cpu().numpy()
 
 
-def _masked_kernel(K: torch.Tensor, variant: str, T: int) -> torch.Tensor:
+def _masked_kernel(K: torch.Tensor, variant: str, T: int,
+                   n_F: int) -> torch.Tensor:
     """K with the entries a variant of ``eigvec_preconditioner`` drops set
-    to zero."""
+    to zero.  Rows and columns from ``n_F`` on are the energy-constraint
+    rows of the extended system (none without energy constraints)."""
     idx = torch.arange(K.shape[0], device=K.device)
+    is_F = idx < n_F
     if variant == "eigvec_precon":
         return K
     if variant == "eigvec_precon_block_diagonal":
-        point = idx // T
+        # energy row i belongs to point i: it keeps the point's force
+        # coupling and its own diagonal
+        point = torch.where(is_F, idx // T, idx - n_F)
         keep = point[:, None] == point[None, :]
         return torch.where(keep, K, 0.0)
     if variant == "eigvec_precon_atomic_interactions":
-        # zero entries below threshold except 3x3 atomic diagonal blocks
+        # zero entries below threshold except 3x3 atomic diagonal blocks;
+        # each energy row is an atom of its own, so it keeps its diagonal
         absK = torch.abs(K)
         delete = absK < 1.0 * absK.max()
-        atom = (idx % T) // 3
+        atom = torch.where(is_F, (idx % T) // 3, -1 - (idx - n_F))
         delete &= atom[:, None] != atom[None, :]
         if not torch.equal(delete, delete.T):
             raise AssertionError("only symmetric deletes allowed")
@@ -917,18 +938,22 @@ def eigvec_preconditioner(
     indefinite, and L = U_k sqrt(s_k) uses singular values.  As in the JAX
     package, 'eigvec_precon_block_diagonal' keeps the per-point diagonal
     blocks (the reference's version zeroes the entire matrix,
-    iterative_solver.py:1259-1262).
+    iterative_solver.py:1259-1262), and with ``use_E_cstr`` the masks extend
+    over the energy rows (the reference's (n, n) masks crash against the
+    extended matrix, iterative_solver.py:1241-1252): 'block_diagonal' keeps
+    each point's force block, its force-to-own-energy coupling and the
+    energy diagonal; 'atomic_interactions' the atomic 3x3 blocks and the
+    energy diagonal.
     """
-    if use_E_cstr:
-        raise NotImplementedError(
-            "the energy-constrained eigenvector preconditioner is ROADMAP "
-            "module item 10b")
     key = ("svd", variant, use_E_cstr)
     if svd_cache is not None and key in svd_cache:
         U, s = svd_cache[key]
     else:
-        _guard_dense_diagnostic(variant, cache.n)
-        K = _masked_kernel(knl.assemble_full(spec, cache), variant, spec.dim_i)
+        _guard_dense_diagnostic(
+            variant, cache.n + (cache.n_train if use_E_cstr else 0))
+        K = (knl.assemble_full_ecstr(spec, cache) if use_E_cstr
+             else knl.assemble_full(spec, cache))
+        K = _masked_kernel(K, variant, spec.dim_i, cache.n)
         U, s, _ = torch.linalg.svd(K)
         if svd_cache is not None:
             svd_cache[key] = (U, s)

@@ -104,7 +104,7 @@ def test_wrap_ckpt_model_matches_jax(ethanol_ds):
 
     tt = Trainer(device="cpu")
     _, _, Xt, Jct, _ = tt.build_kernel_inputs(task)
-    yt, yt_std = tt.labels(task)
+    yt, yt_std, _ = tt.labels(task)
     saved_t = []
     tt._wrap_ckpt(saved_t.append, task, Xt, Jct, yt, yt_std)(**snap)
 

@@ -15,8 +15,9 @@ with ``--device cpu`` for the port.
 * Files cross: a task written by the JAX CLI trains in the port's
   ``train``, and a model written by the port validates in the JAX CLI with
   the port's table; ``show`` prints what the JAX CLI prints; ``resume``
-  warm-starts; a tampered dataset fails ``resume``; ``--E-cstr`` reaches
-  the Trainer's NotImplementedError, which names ROADMAP item 10b.
+  warm-starts; a tampered dataset fails ``resume``; ``--E-cstr`` trains
+  energy-constrained models whose tables (energies included) are the JAX
+  CLI's.
 """
 
 import os
@@ -207,10 +208,26 @@ def test_resume_rejects_bad_fingerprint(tmp_path, ds_path, ethanol_ds):
                         "--device", "cpu"], tmp_path)
 
 
-def test_energy_constraints_name_their_roadmap_item(tmp_path, ds_path):
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        _run(cli.main, ["all", ds_path, "10", "--n-valid", "5", "--sig", "4",
-                        "--E-cstr", "--device", "cpu"], tmp_path)
+def test_energy_constraints_train_like_the_jax_cli(tmp_path_factory,
+                                                   ds_path):
+    """``all --E-cstr`` with the analytic solver in both CLIs: models with
+    energy coefficients and c the training energies' mean, and test tables
+    within 1e-6 relative, energy errors included (the constrained system's
+    two LAPACK solves agree to ~1e-7 in what they predict,
+    tests/test_torch_ecstr.py)."""
+    argv = ["all", ds_path, "10", "--n-valid", "5", "--sig", "4",
+            "--E-cstr", "--n-test", "20", "--task-dir", "erun"]
+    wj, wt = (tmp_path_factory.mktemp(d) for d in ("jax_ecstr", "port_ecstr"))
+    res_j = _run(jcli.main, argv, wj)
+    res_t = _run(cli.main, [*argv, "--device", "cpu"], wt)
+    mj, mt = (_load(w / "erun" / "best_model.npz") for w in (wj, wt))
+    assert set(mt) == set(mj)
+    assert mt["alphas_E"].shape == (10,)
+    assert float(mt["c"]) == float(mj["c"])
+    _assert_tables_close(res_t, res_j, 1e-6)
+    for field in ("e_mae", "e_rmse"):
+        g, w = getattr(res_t, field), getattr(res_j, field)
+        assert np.isfinite(w) and abs(g - w) <= 1e-6 * abs(w), (field, g, w)
 
 
 def test_module_help_exits_zero():

@@ -25,7 +25,10 @@ matvec and the square matvec are held to the cached packed matvec (1e-12,
 1e-10).  The greedy pivoted Cholesky on the card is held to the port's own
 CPU run on a random geometry (equal pivots, L to 1e-10, below the rank where
 translation ties appear, see ``tests/test_torch_zoo.py``) and queues its
-steps without a host read.
+steps without a host read.  The energy-constrained matvec, energy blocks and
+greedy loop on the card are held to the port's CPU run (1e-12, 1e-12, equal
+pivots and L to 1e-10); the df64 passes also run at the row count of the
+constrained main path's factor, 32,648.
 """
 
 import numpy as np
@@ -306,7 +309,7 @@ def test_fast_predictor_matches_f64_predictor(small):
 
 
 @pytest.mark.parametrize("shape", [(700, 150), (1024, 512), (4099, 1030),
-                                   (257, 4)])
+                                   (257, 4), (32648, 1536)])
 @pytest.mark.parametrize("kernel", ["bt_v", "b_x"])
 def test_df64_kernel_matches_plain_version_and_f64(small, kernel, shape):
     n, m = shape
@@ -451,3 +454,37 @@ def test_df64_apply_of_a_cholesky_factor_launches_both_kernels(small):
     assert df64_gemv.df64_bt_v.launches == before[0] + 1
     assert df64_gemv.df64_b_x.launches == before[1] + 1
     assert _rel_err(got, P64(v)) <= DF64_RTOL
+
+
+def test_constrained_matvec_and_blocks_on_card_match_cpu(small):
+    spec, c_gpu, c_cpu = _random_caches()
+    n_ext = c_cpu.n + c_cpu.n_train
+    v = np.random.default_rng(6).normal(size=n_ext)
+    got = knl.matvec_psd_ecstr(c_gpu, torch.as_tensor(v, device="cuda"))
+    assert got.is_cuda
+    assert _rel_err(got.cpu(), knl.matvec_psd_ecstr(
+        c_cpu, torch.as_tensor(v))) <= 1e-12
+    for g, c in zip(knl.assemble_ecstr_blocks(spec.dim_i, c_gpu),
+                    knl.assemble_ecstr_blocks(spec.dim_i, c_cpu)):
+        assert _rel_err(g.cpu(), c) <= 1e-12
+
+
+def test_constrained_greedy_loop_on_card_matches_cpu(small):
+    """Energy pivots included; the loop queues its steps without a host
+    read (synchronization debug mode, as for the force-only loop)."""
+    spec, c_gpu, c_cpu = _random_caches()
+    res_g, info_g = pch.pivoted_cholesky(spec, c_gpu, 40, use_E_cstr=True)
+    res_c, info_c = pch.pivoted_cholesky(spec, c_cpu, 40, use_E_cstr=True)
+    np.testing.assert_array_equal(info_g["pivots"], info_c["pivots"])
+    assert (info_c["pivots"] >= c_cpu.n).any()
+    assert _rel_err(res_g.L.cpu(), res_c.L) <= RTOL
+    diag = knl.kernel_diag_ecstr(spec.dim_i, c_gpu)
+    K_fe, K_ee = knl.assemble_ecstr_blocks(spec.dim_i, c_gpu)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = pch._pivoted_cholesky_device_ecstr(spec.dim_i, c_gpu, diag,
+                                                 K_fe, K_ee, 24)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(res.pivot_values.min()) > 0

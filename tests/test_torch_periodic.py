@@ -120,7 +120,7 @@ def test_ridge_on_the_diagonal_keeps_the_alphas(periodic_ds, return_K):
                        sig=SIG, use_sym=False, solver="analytic")
     tr = Trainer(device="cpu")
     spec, S, X, Jc, P_idx = tr.build_kernel_inputs(task)
-    y, _ = tr.labels(task)
+    y, _, _ = tr.labels(task)
     cache = tk.build_cache(X, Jc, S, P_idx, SIG, 1e-15, device="cpu")
     K = tk.assemble_full(spec, cache)
     A = K + tan.ANALYTIC_REG * torch.eye(K.shape[0], dtype=K.dtype)

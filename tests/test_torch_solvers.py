@@ -128,15 +128,32 @@ def test_pcg_stops_before_iterating_when_already_converged():
 
 
 @pytest.mark.parametrize("option, item", [
-    ("matvec_dtype", "items 10-11"), ("use_E_cstr", "item 10"),
-    ("apply_impl_ozaki", "item 11")])
+    ("matvec_dtype", "items 10-11"), ("apply_impl_ozaki", "item 11")])
 def test_unported_solver_options_raise(caches, option, item):
     """What the port does not have yet raises and names its ROADMAP item,
     also with a strategy that builds no Nystrom preconditioner."""
     _, _, spec_t, ct, y = caches
     task = {"matvec_dtype": {"matvec_dtype": "ozaki"},
-            "use_E_cstr": {"use_E_cstr": True},
             "apply_impl_ozaki": {"apply_impl": "ozaki"}}[option]
     with pytest.raises(NotImplementedError, match=f"ROADMAP module {item}"):
         tit.solve_iterative(spec_t, ct, task, y, 1.0, break_percentage=0.1,
                             str_preconditioner="cholesky")
+
+
+def test_energy_constrained_cholesky_solve_matches_jax(caches):
+    """The energy-constrained system of the same points (n + N rows, the
+    force labels and seeded energy labels), greedy pivoted Cholesky at 10%
+    of n + N, 10 iterations at lam = 1e-10: equal pivots and iterations,
+    iterates within 1e-6 (two PCG runs of this system part chaotically
+    after the first few iterations; tests/test_torch_ecstr.py)."""
+    spec_j, cj, spec_t, ct, y = caches
+    y_ext = np.concatenate([y, np.random.default_rng(2).normal(size=16)])
+    task = {"use_E_cstr": True, "solver_maxiter": 10}
+    kw = dict(break_percentage=0.1, str_preconditioner="cholesky")
+    res_j = jit_.solve_iterative(spec_j, cj, task, y_ext, 1.0, **kw)
+    res_t = tit.solve_iterative(spec_t, ct, task, y_ext, 1.0, **kw)
+    np.testing.assert_array_equal(res_t.info["pivots"], res_j.info["pivots"])
+    assert res_t.num_iters == res_j.num_iters == 10
+    assert res_t.alphas.shape == (ct.n + 16,)
+    assert (np.abs(res_t.alphas - res_j.alphas).max()
+            <= 1e-6 * np.abs(res_j.alphas).max())

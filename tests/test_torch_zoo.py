@@ -260,10 +260,17 @@ def test_full_index_order_matches_jax():
 @pytest.mark.parametrize("factorize", ["pivoted_cholesky",
                                        "panel_pivoted_cholesky",
                                        "block_rp_cholesky"])
-def test_energy_constrained_factorizations_raise(setup, factorize):
-    _, _, spec_t, ct = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP module item 10"):
-        getattr(tch, factorize)(spec_t, ct, 4, use_E_cstr=True)
+def test_energy_constrained_factorizations_match_jax(setup, factorize):
+    """Over the extended (n + N) system: the energy columns are pivots too
+    (their diagonal ~2 against the forces' ~1e-3), and rank RANK stays below
+    the first translation tie (rank 51 on this geometry), so the factors
+    are the JAX package's pivot for pivot."""
+    spec_j, cj, spec_t, ct = setup
+    res_j, info_j = getattr(jch, factorize)(spec_j, cj, RANK, use_E_cstr=True)
+    res_t, info_t = getattr(tch, factorize)(spec_t, ct, RANK, use_E_cstr=True)
+    _same_factor(res_t, info_t, res_j, info_j)
+    assert res_t.L.shape[0] == ct.n + N_TRAIN
+    assert (info_t["pivots"] >= ct.n).any()
 
 
 # -- preconditioners -----------------------------------------------------------
@@ -368,8 +375,15 @@ def test_eigvec_preconditioner_full_rank_is_the_inverse(setup):
     np.testing.assert_allclose(out.numpy(), v.numpy(), rtol=5e-5, atol=1e-7)
     with pytest.raises(NotImplementedError):
         tpc.eigvec_preconditioner(spec_t, ct, 4, LAM, variant="eigvec_other")
-    with pytest.raises(NotImplementedError, match="ROADMAP module item 10"):
-        tpc.eigvec_preconditioner(spec_t, ct, 4, LAM, use_E_cstr=True)
+    # the energy-constrained system at full rank likewise; it is less well
+    # conditioned: 2e-5 measured, where the force-only system meets 1e-7
+    n_ext = ct.n + N_TRAIN
+    A_ext = tk.assemble_full_ecstr(spec_t, ct)
+    A_ext.diagonal().add_(LAM)
+    v = torch.as_tensor(_vec(n_ext))
+    P = tpc.eigvec_preconditioner(spec_t, ct, n_ext, LAM, use_E_cstr=True)
+    np.testing.assert_allclose((A_ext @ P(v)).numpy(), v.numpy(), rtol=5e-5,
+                               atol=1e-4)
 
 
 def test_rank_k_leverage_scores_match_jax(setup):
