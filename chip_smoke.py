@@ -108,6 +108,25 @@ Phases, each printing one JSON line of its own numbers:
   cli_ecstr      cli_reference with --E-cstr at --tol 1e-6: the same sigma on
                  card and CPU, iterations within 2, test force and energy
                  MAE within 1e-4
+  precision      the arithmetic options of the solve on the train phase's
+                 task, one line per part, each with the card's name and
+                 power limit: (a) matvec_dtype="ozaki" (one matvec within
+                 1e-12 of the f64 one, the solve within 400 iterations,
+                 held-out MAE within 10%, fast prediction within the predict
+                 phase's tolerances); (b) apply_impl="ozaki" (one apply
+                 within 1e-13 of the f64 split apply, iterations within 2 of
+                 train's); (c) MLFF_BUILD_GEMM=ozaki (guard quiet,
+                 gram_probe_err, build seconds, iterations within 2); (d)
+                 matvec_dtype "mixed" and "float32" capped at 3x train's
+                 iterations (a reported convergence has a true f64 residual
+                 <= 1.3e-4); (e) n = 157,491 on the OTF cache: the Ozaki OTF
+                 matvec within 1e-12 of the f64 one, the mixed one's error,
+                 the split factor's Gram at k = 2368 under both build
+                 engines; (f) MLFF_TPU_HBM_CEILING_GB=0.3: the factor
+                 switches to column blocks of 512, iterations within 2;
+                 (g) IR-CG on zoo_dense's system: lam = 1e-6 converges
+                 within 6 outer steps, lam = 1e-10 stops within 3, not
+                 converged
 The kernel phase also holds the fused kernel's wide route (D > 129) to its
 plain version at D = 130, 210, 3828 and 68,265 (1e-12, same bits twice)
 and times it at B = 512 at the aspirin, catcher and full-row shapes.
@@ -122,9 +141,11 @@ non-zero before any phase.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import glob
 import io
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -239,6 +260,18 @@ ZOO_ECSTR = (("cholesky", "cholesky", {}, {}),
               "eigvec_precon_block_diagonal", {}, {}),
              ("eigvec_precon_atomic_interactions",
               "eigvec_precon_atomic_interactions", {}, {}))
+# precision: one matvec of an f64-grade engine against the f64 one, the
+# lam-floor bound (ARCHITECTURE.md; the JAX package's Ozaki matvec measured
+# 2.0e-13 on a TPU); the Ozaki apply against the f64 split apply
+# (tests/test_ozaki.py); iterations of the f64-grade options within 2 of
+# train's; a reduced-precision solve that reports convergence has a true
+# f64 residual within tests/test_mixed_matvec.py's 1.3e-4
+PRECISION_MATVEC_RTOL, PRECISION_APPLY_RTOL = 1e-12, 1e-13
+PRECISION_ITERS_SLACK, PRECISION_RESID_LIMIT = 2, 1.3e-4
+# the ceiling that trips the switch on the main task's 0.39 GB factor
+CEILING_ENV, PRECISION_CEILING_GB = "MLFF_TPU_HBM_CEILING_GB", "0.3"
+PRECISION_157K = ("ethanol", 5833, 2368)      # train_157k's task
+IR_MAX_OUTER = 6                              # tests/test_ir_cg.py
 
 
 def emit(phase: str, **fields) -> None:
@@ -1507,6 +1540,284 @@ def cli_ecstr(small: dict) -> None:
         fail(f"cli_ecstr: test MAEs part by {rel} between card and CPU")
 
 
+def card() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def norm_rel(got, want) -> float:
+    """||got - want|| / ||want|| (tests/test_ozaki.py's measure)."""
+    return float((got - want).norm() / want.norm())
+
+
+class _LogLines(logging.Handler):
+    """Collects the messages of one logger while it is attached."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines: list[str] = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def precision(torch, dev, tr, task, ds, held, ref: dict) -> None:
+    """Phase precision: every arithmetic option of the solve on the main
+    task, against the train phase's f64 solve (``ref``: its iterations,
+    lam, inducing columns, build seconds and the f64 Predictor's held-out
+    force MAE); then the n = 157,491 OTF matvecs and the split factor's
+    Gram under both build engines, and IR-CG on zoo_dense's system.  One
+    line per part, each with the card's name and power limit."""
+    from mlff_tpu_torch.data.synthetic import make_benchmark_dataset
+    from mlff_tpu_torch.models.predict import Predictor
+    from mlff_tpu_torch.models.task import create_task
+    from mlff_tpu_torch.ops import kernel as knl
+    from mlff_tpu_torch.solvers import ir_cg
+    from mlff_tpu_torch.solvers import preconditioners as pc
+
+    card_ = card()
+    t_phase = time.perf_counter()
+    spec, S, X, Jc, P_idx = tr.build_kernel_inputs(task)
+    lam = ref["lam"]
+    cache = knl.build_cache(X, Jc, S, P_idx, SIG, lam, device=dev)
+    y_dev = torch.as_tensor(tr.labels(task)[0], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    v = torch.randn(cache.n, generator=gen, dtype=torch.float64, device=dev)
+    Kv = knl.matvec_psd(cache, v)
+    f64_ms = time_ms(torch, lambda: knl.matvec_psd(cache, v))
+
+    def trained(extra: dict) -> tuple[dict, dict]:
+        """Train the main task with ``extra`` task fields; the model and its
+        numbers (the true f64 residual of its coefficients included)."""
+        t0 = time.perf_counter()
+        m = tr.train(dict(task, **extra), n_columns=K_COLUMNS,
+                     str_preconditioner="lev_random")
+        train_s = time.perf_counter() - t0
+        info = tr.last_info
+        iters = int(m["solver_iters"])
+        _, F = Predictor(m, device=dev).predict(ds["R"][held])
+        x = torch.as_tensor(-np.asarray(m["alphas_F"]).ravel(), device=dev)
+        r = knl.matvec_psd(dataclasses.replace(cache, lam=float(m["lam"])),
+                           x) - y_dev
+        return m, dict(
+            converged=bool(m["is_conv"]), iters=iters,
+            train_iters=ref["iters"], train_s=train_s,
+            preconditioner_s=info["total_time_preconditioner"],
+            cg_s=info["total_time_cg"],
+            ms_per_iter=info["total_time_cg"] * 1e3 / max(iters, 1),
+            true_resid=float(r.norm() / y_dev.norm()),
+            force_mae_held_out=float(np.abs(F - ds["F"][held]).mean()),
+            force_mae_held_out_f64=ref["mae"])
+
+    def mae_ok(row) -> bool:
+        return abs(row["force_mae_held_out"] / ref["mae"] - 1.0) \
+            <= MAE_RATIO_LIMIT
+
+    # (a) matvec_dtype="ozaki"
+    state = knl.ozaki_matvec_state(cache)
+    row_a = dict(part="a_matvec_ozaki", card=card_, n=cache.n,
+                 rel_err_matvec_vs_f64=norm_rel(
+                     knl.matvec_psd_ozaki(state, v), Kv),
+                 matvec_ms=time_ms(torch, lambda: knl.matvec_psd_ozaki(
+                     state, v), reps=5),
+                 matvec_f64_ms=f64_ms,
+                 state_digit_bytes=sum(
+                     d.numel() * d.element_size()
+                     for sl in (state.Xq_sl, state.Xqt_sl, state.Ae1_sl)
+                     for d in sl[1]))
+    del state
+    m, row = trained({"matvec_dtype": "ozaki"})
+    ok_fast, errF, errE, max_F, _ = fast_against_f64(m, ds["R"][held], dev)
+    row_a.update(row, fast_max_abs_err_F_vs_f64=errF,
+                 fast_max_abs_err_E_vs_f64=errE, max_abs_F=max_F)
+    emit("precision", **row_a)
+    if not row_a["rel_err_matvec_vs_f64"] <= PRECISION_MATVEC_RTOL:
+        fail("precision (a): the Ozaki matvec misses the f64 one by "
+             f"{row_a['rel_err_matvec_vs_f64']}")
+    if not (row_a["converged"] and row_a["iters"] <= MAX_ITERS
+            and mae_ok(row_a) and ok_fast):
+        fail(f"precision (a): the Ozaki-matvec training: {row_a}")
+
+    # (b) apply_impl="ozaki"
+    P64 = pc.nystrom_preconditioner(spec, cache, ref["inducing"], lam)
+    Poz = pc.ozaki_from_split(pc.WoodburySplitPreconditioner(
+        B=P64.B.clone(), W2=P64.W2, lam=P64.lam, info=P64.info))
+    row_b = dict(part="b_apply_ozaki", card=card_, n=cache.n,
+                 m=P64.B.shape[1],
+                 rel_err_apply_vs_f64=norm_rel(Poz(v), P64(v)),
+                 apply_ms=time_ms(torch, lambda: Poz(v)),
+                 apply_f64_ms=time_ms(torch, lambda: P64(v)),
+                 digit_bytes=Poz.info["digit_bytes"],
+                 digit_bytes_over_B_bytes=Poz.info["digit_bytes"]
+                 / (P64.B.numel() * 8))
+    del P64, Poz
+    _, row = trained({"apply_impl": "ozaki"})
+    row_b.update(row)
+    emit("precision", **row_b)
+    if not row_b["rel_err_apply_vs_f64"] <= PRECISION_APPLY_RTOL:
+        fail("precision (b): the Ozaki apply misses the f64 one by "
+             f"{row_b['rel_err_apply_vs_f64']}")
+    if not (row_b["converged"] and abs(row_b["iters"] - ref["iters"])
+            <= PRECISION_ITERS_SLACK and mae_ok(row_b)):
+        fail(f"precision (b): the Ozaki-apply training: {row_b}")
+
+    # (c) MLFF_BUILD_GEMM=ozaki, read once per process: set, reset, restore
+    saved = os.environ.get("MLFF_BUILD_GEMM"), pc._BUILD_GEMM_MODE
+    os.environ["MLFF_BUILD_GEMM"] = "ozaki"
+    pc._BUILD_GEMM_MODE = None
+    try:
+        _, row = trained({})
+        ny = tr.last_info["nystrom"]
+    finally:
+        if saved[0] is None:
+            os.environ.pop("MLFF_BUILD_GEMM", None)
+        else:
+            os.environ["MLFF_BUILD_GEMM"] = saved[0]
+        pc._BUILD_GEMM_MODE = saved[1]
+    row_c = dict(part="c_build_ozaki", card=card_, n=cache.n, **row,
+                 build_gemm=ny["build_gemm"],
+                 gram_guard_fired=ny["gram_guard_fired"],
+                 gram_probe_err=ny["gram_probe_err"],
+                 factorization_s=ny["factorization_s"],
+                 factorization_f64_s=ref["factorization_s"],
+                 gram_probe_err_f64=ref["gram_probe_err"],
+                 nystrom_stages=ny["stages"])
+    emit("precision", **row_c)
+    if not (row_c["build_gemm"] == "ozaki" and not row_c["gram_guard_fired"]
+            and row_c["converged"] and abs(row_c["iters"] - ref["iters"])
+            <= PRECISION_ITERS_SLACK and mae_ok(row_c)):
+        fail(f"precision (c): the Ozaki-built training: {row_c}")
+
+    # (d) the reduced-precision matvecs, on the calibrated system where the
+    # JAX package records divergence: they must terminate and stay honest
+    for dtype, mv in (("mixed", lambda: knl.matvec_psd_mixed(cache, v)),
+                      ("float32", lambda: knl.matvec_psd(
+                          knl.downcast_cache(cache), v))):
+        rel = norm_rel(mv(), Kv)
+        _, row = trained({"matvec_dtype": dtype,
+                          "solver_maxiter": 3 * ref["iters"]})
+        row_d = dict(part=f"d_matvec_{dtype}", card=card_, n=cache.n,
+                     rel_err_matvec_vs_f64=rel, solver_maxiter=3
+                     * ref["iters"], **row)
+        emit("precision", **row_d)
+        if row_d["converged"] and not row_d["true_resid"] \
+                <= PRECISION_RESID_LIMIT:
+            fail(f"precision (d): {dtype} reports convergence with a true "
+                 f"residual of {row_d['true_resid']}")
+    del Kv
+
+    # (e) n = 157,491 on the OTF cache: the matvecs and the Gram engines
+    molecule, n_train, k = PRECISION_157K
+    ds_l, perms_l = make_benchmark_dataset(
+        molecule, n_samples=n_train + N_HELD_LARGE, seed=11, n_train=n_train)
+    task_l = create_task(ds_l, n_train, ds_l, n_valid=50, sig=SIG,
+                         solver="cg", perms=perms_l)
+    spec_l, S, X, Jc, P_idx = tr.build_kernel_inputs(task_l)
+    otf = knl.build_cache(X, Jc, S, P_idx, SIG, lam, pairwise=False,
+                          device=dev)
+    del X, Jc, S
+    v = torch.randn(otf.n, generator=gen, dtype=torch.float64, device=dev)
+    Kv = knl.matvec_psd(otf, v)
+    state = knl.ozaki_matvec_state(otf)
+    row_e = dict(part="e_157k", card=card_, n=otf.n, N_train=n_train, k=k,
+                 otf_tile=knl._otf_tile(n_train, otf.Xqt.shape[0]),
+                 rel_err_ozaki_otf_vs_f64=norm_rel(
+                     knl.matvec_psd_ozaki(state, v), Kv),
+                 rel_err_mixed_otf_vs_f64=norm_rel(
+                     knl.matvec_psd_mixed(otf, v), Kv),
+                 matvec_ozaki_otf_ms=time_ms(
+                     torch, lambda: knl.matvec_psd_ozaki(state, v), reps=2),
+                 matvec_f64_otf_ms=time_ms(
+                     torch, lambda: knl.matvec_psd(otf, v), reps=3))
+    del state, Kv
+    rng = np.random.default_rng(0)
+    lev, order = pc.leverage_scores(spec_l, otf, lam,
+                                    int(np.ceil(k / otf.n * n_train)), rng)
+    idx = pc.select_by_leverage("lev_random", lev, order, k, rng)
+    K_nm = knl.assemble_columns(spec_l, otf, idx)
+    W1 = torch.as_tensor(pc._host_whiten_factor(
+        pc._host_sym(K_nm[torch.as_tensor(idx, device=dev)]), 1e-10, "chol"),
+        device=dev)
+    B = K_nm @ W1
+    del K_nm, W1, otf
+    for impl in ("f64", "ozaki"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner = pc._gram(B, impl)
+        torch.cuda.synchronize()
+        row_e[f"gram_{impl}_s"] = time.perf_counter() - t0
+        row_e[f"gram_probe_err_{impl}"] = pc._gram_probe(
+            B, pc._host_sym(inner))
+        del inner
+    del B
+    torch.cuda.empty_cache()
+    emit("precision", **row_e)
+    if not row_e["rel_err_ozaki_otf_vs_f64"] <= PRECISION_MATVEC_RTOL:
+        fail("precision (e): the Ozaki OTF matvec misses the f64 one by "
+             f"{row_e['rel_err_ozaki_otf_vs_f64']}")
+    if not max(row_e["gram_probe_err_f64"], row_e["gram_probe_err_ozaki"]) \
+            <= max(0.1 * lam, 1e-12):
+        fail(f"precision (e): a Gram fails the build's guard: {row_e}")
+
+    # (f) the memory-ceiling switch on the main task's 0.39 GB factor
+    saved = os.environ.get(CEILING_ENV)
+    os.environ[CEILING_ENV] = PRECISION_CEILING_GB
+    lines = _LogLines()
+    pc.log.addHandler(lines)
+    try:
+        _, row = trained({})
+        ny = tr.last_info["nystrom"]
+    finally:
+        pc.log.removeHandler(lines)
+        if saved is None:
+            os.environ.pop(CEILING_ENV, None)
+        else:
+            os.environ[CEILING_ENV] = saved
+    switch = [ln for ln in lines.lines if "using column blocks of" in ln]
+    row_f = dict(part="f_memory_ceiling", card=card_,
+                 ceiling_gb=float(PRECISION_CEILING_GB),
+                 factor_gb=27 * N_TRAIN * K_COLUMNS * 8 / 1e9,
+                 block_cols=ny.get("block_cols"), n_blocks=ny.get("n_blocks"),
+                 log_line=switch[0] if switch else None, **row)
+    emit("precision", **row_f)
+    if not (row_f["block_cols"] == 512 and switch
+            and switch[0].endswith("column blocks of 512")
+            and row_f["converged"] and abs(row_f["iters"] - ref["iters"])
+            <= PRECISION_ITERS_SLACK):
+        fail(f"precision (f): the ceiling switch: {row_f}")
+
+    # (g) IR-CG on zoo_dense's system: converges at lam = 1e-6 within
+    # IR_MAX_OUTER steps, reports the f32 floor at lam = 1e-10
+    N = ZOO_DENSE_N_TRAIN
+    ds_z, perms_z = make_benchmark_dataset("ethanol", n_samples=N + 50,
+                                           seed=11, n_train=N)
+    task_z = create_task(ds_z, N, ds_z, n_valid=50, sig=SIG, solver="cg",
+                         perms=perms_z)
+    spec_z, S, X, Jc, P_idx = tr.build_kernel_inputs(task_z)
+    b = torch.as_tensor(tr.labels(task_z)[0], device=dev)
+    for lam_ir, kw, want in ((1e-6, {"inner_maxiter": 300}, True),
+                             (1e-10, {"inner_maxiter": 100, "max_outer": 3},
+                              False)):
+        c = knl.build_cache(X, Jc, S, P_idx, SIG, lam_ir, device=dev)
+        idx = pc.select_random(c.n, c.n // 8, np.random.default_rng(0))
+        P = pc.nystrom_preconditioner(spec_z, c, idx, lam_ir)
+        res = ir_cg.ir_pcg_kernel(spec_z, c, b, P.fused_T(), lam_ir,
+                                  tol=1e-4, inner_tol=1e-2, **kw)
+        emit("precision", part="g_ir_cg", card=card_, n=c.n, lam=lam_ir,
+             converged=res.converged, outer_iters=res.outer_iters,
+             inner_iters_total=res.inner_iters_total, resid=res.resid,
+             time_s=res.time_s)
+        if res.converged != want or res.outer_iters > (
+                IR_MAX_OUTER if want else kw["max_outer"]):
+            fail(f"precision (g): IR-CG at lam = {lam_ir}: converged="
+                 f"{res.converged} in {res.outer_iters} outer steps")
+    emit("precision", part="phase", card=card_,
+         seconds=time.perf_counter() - t_phase)
+
+
 def main() -> None:
     import torch
 
@@ -1609,6 +1920,10 @@ def main() -> None:
          gram_guard_fired=info["nystrom"]["gram_guard_fired"],
          gram_probe_err=info["nystrom"]["gram_probe_err"],
          nystrom_stages=info["nystrom"]["stages"])
+    train_ref = dict(iters=int(model["solver_iters"]), lam=float(model["lam"]),
+                     inducing=np.asarray(model["inducing_pts_idxs"]),
+                     factorization_s=info["nystrom"]["factorization_s"],
+                     gram_probe_err=info["nystrom"]["gram_probe_err"])
     if not model["is_conv"]:
         fail("the PCG solve did not converge")
     if model["solver_iters"] > MAX_ITERS:
@@ -1725,6 +2040,9 @@ def main() -> None:
     zoo_ecstr(torch, dev)
     cli_ecstr(small)
 
+    # -- precision: the arithmetic options of the solve ----------------------
+    precision(torch, dev, tr, task, ds, held, dict(train_ref, mae=mae_xla))
+
     full = fused_rows["full"]
     kernels = [{
         "name": "fused_predict", "route": "cuda",
@@ -1776,10 +2094,7 @@ def main() -> None:
             "vs_library": main_row["vs_library"],
             "share_of_bound": main_row["share_of_bound"]})
     print(json.dumps({"kernels": kernels}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

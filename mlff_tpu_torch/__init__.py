@@ -39,6 +39,21 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def require_full_f32(t: torch.Tensor) -> None:
+    """Raise if an f32 matrix product on ``t``'s device would run in TF32.
+    The f32 products of the precision engines (``ops/ozaki.py``, the mixed
+    and f32 matvecs, IR-CG) are exact or error-budgeted only in full f32;
+    ``resolve_device`` switches TF32 off, but a caller can reach them
+    without it."""
+    if t.device.type == "cuda" and (
+            torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            "an f32 product of the precision engines would run in TF32: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False (resolve_device "
+            "does)")
+
+
 def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (a no-op on the CPU); timers around
     device work end with this."""

@@ -25,12 +25,18 @@ Large molecules take inflation-free routes: compressed columns and diagonal
 (``SquareCache``, ``matvec_psd_square``, ``assemble_columns_square``).
 Energy constraints extend the system by one row and column per training
 point (``matvec_psd_ecstr``, ``assemble_*_ecstr``, ``kernel_diag_ecstr``),
-on the pairwise cache only.  Not in this module yet: the mixed/ozaki
-precision engines (ROADMAP module items 10d and 11).
+on the pairwise cache only.  The precision engines are options of the
+solve, never its default: the f32 matvec on a ``downcast_cache`` copy, the
+mixed matvec (``matvec_psd_mixed``: centred f32 products with hi/lo operand
+corrections and f64 chunk sums) and the Ozaki exact-slice matvec
+(``ozaki_matvec_state``, ``matvec_psd_ozaki``: f64-grade products from
+exact f32 digit passes, ``ops/ozaki.py``), each on the cached and the
+on-the-fly cache.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 from dataclasses import dataclass
@@ -38,7 +44,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import require_full_f32, resolve_device
 from ..utils.log import get_logger
 from .descriptor import DescriptorSpec, d_desc_dot_vec, vec_dot_d_desc
 
@@ -257,7 +263,10 @@ def _matvec_ref_otf(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
     N = cache.n_train
     A = cache.S.shape[1]
     w = d_desc_dot_vec(cache.Jc, cache.S, v.reshape(N, A, 3))   # (N, D)
-    wt = perm_expand_w(w, cache.P_idx)                          # (M, D)
+    # an f32 cache (downcast_cache): distances, weights and the products in
+    # f32 (the JAX package promotes this variant's products to f64 against
+    # its f64 cotangents; torch does not promote in a product)
+    wt = perm_expand_w(_at_cache_dtype(cache, w), cache.P_idx)  # (M, D)
     c0 = 5.0 / (3.0 * cache.sig**2)
     F_desc = torch.empty_like(cache.Xq)
     tile = _otf_tile(N, cache.Xqt.shape[0])
@@ -268,21 +277,34 @@ def _matvec_ref_otf(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
         A_exp1 = A_exp * (1.0 + dist)
         F_desc[start:start + tile], _ = _desc_forces_x(
             cache.Xqt, cache.sig, Xq_t, A_exp, A_exp1, wt, energies=False)
-    return vec_dot_d_desc(cache.Jc, cache.S, F_desc).reshape(-1)
+    return vec_dot_d_desc(cache.Jc, cache.S,
+                          F_desc.to(cache.Jc.dtype)).reshape(-1)
+
+
+def _at_cache_dtype(cache: KernelCache, w: torch.Tensor) -> torch.Tensor:
+    """Cotangents at the dtype of the cache's product operands: f64 as they
+    are, or f32 for a ``downcast_cache`` copy, whose products must then run
+    in full f32 (TF32 checked)."""
+    if cache.Xqt.dtype == torch.float32:
+        require_full_f32(cache.Xqt)
+    return w.to(cache.Xqt.dtype)
 
 
 def matvec_ref(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
     """K_ref @ v, the reference-convention (negative-definite) kernel matvec
-    (reference predict.py:997-1110).  v: flat (n,); returns flat (n,)."""
+    (reference predict.py:997-1110).  v: flat (n,); returns flat (n,).  On
+    a ``downcast_cache`` copy the three products run in f32 and the
+    Jacobian contractions in f64, as in the JAX package."""
     if cache.A_exp is None:
         return _matvec_ref_otf(cache, v)
     N = cache.n_train
     A = cache.S.shape[1]
     w = d_desc_dot_vec(cache.Jc, cache.S, v.reshape(N, A, 3))   # (N, D)
-    wt = perm_expand_w(w, cache.P_idx)                          # (M, D)
+    wt = perm_expand_w(_at_cache_dtype(cache, w), cache.P_idx)  # (M, D)
     F_desc, _ = _desc_forces_x(cache.Xqt, cache.sig, cache.Xq, cache.A_exp,
                                cache.A_exp1, wt, energies=False)
-    return vec_dot_d_desc(cache.Jc, cache.S, F_desc).reshape(-1)
+    return vec_dot_d_desc(cache.Jc, cache.S,
+                          F_desc.to(cache.Jc.dtype)).reshape(-1)
 
 
 def matvec_psd(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
@@ -314,6 +336,297 @@ def matmat_psd(cache: KernelCache, V: torch.Tensor) -> torch.Tensor:
         Kv = vec_dot_d_desc(cache.Jc, cache.S, F_desc).reshape(b, -1)
         out[:, start:start + block] = (cache.lam * Vb - Kv).T
     return out
+
+
+# ---------------------------------------------------------------------------
+# Reduced-precision matvecs (options of the solve, never its default)
+# ---------------------------------------------------------------------------
+#
+# A plain f32 downcast of the matvec (downcast_cache) lands ~1e-5..1e-6
+# relative error, for two separable reasons that the mixed matvec removes:
+#
+#   1. CANCELLATION in the Gram-trick dot:  dot = Xq.wt - Xqt.wt rounds at
+#      the magnitude of the uncancelled products.  Fix: centre both
+#      descriptor sets by a common vector c before the product
+#      ((Xq-c).wt - (Xqt-c).wt = dot exactly).
+#   2. f32 ACCUMULATION over the M = N*P kernel axis (~sqrt(M) * 2^-24).
+#      Fix: products over chunks of _MIXED_CHUNK columns, one batched f32
+#      product for all chunks, the partials summed in f64.
+#
+# Operand quantization (2^-24 of the weights, Xqt and the per-iteration w)
+# is corrected with one extra product per split operand (hi/lo splitting,
+# ops.df64.split_f64): the correction terms are 2^-24-scaled, so plain f32
+# products carry them at 2^-48 overall.  Everything outside the (B, M)
+# products stays f64.  The JAX package measured that these matvecs diverge
+# CG on the calibrated system, whose spectrum reaches the ridge floor
+# (mlff_tpu/solvers/iterative.py:309-322): they are options, with f64
+# residual replacement.
+
+_MIXED_CHUNK = 32
+
+
+def downcast_cache(cache: KernelCache, dtype=torch.float32) -> KernelCache:
+    """Copy of an f64 cache with the per-iteration product operands (Xq,
+    Xqt, A_exp, A_exp1) downcast, for the f32 CG matvec.  The
+    preconditioner build keeps the f64 cache; lam, X and Jc stay f64, so
+    the result is combined with lam * v in f64."""
+    return dataclasses.replace(
+        cache,
+        Xq=cache.Xq.to(dtype),
+        Xqt=cache.Xqt.to(dtype),
+        A_exp=None if cache.A_exp is None else cache.A_exp.to(dtype),
+        A_exp1=None if cache.A_exp1 is None else cache.A_exp1.to(dtype))
+
+
+def _f32_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32 product, promoted to f64 (``precision=HIGHEST`` in the JAX
+    package: full f32, TF32 checked)."""
+    require_full_f32(a)
+    return (a @ b).to(torch.float64)
+
+
+def _gemm_f32_chunkacc(A32: torch.Tensor, B32: torch.Tensor,
+                       mc: int | None = None) -> torch.Tensor:
+    """A32 (B, M) @ B32 (M, D) with f32 products over chunks of ``mc``
+    columns and the chunk partials summed in f64: the f32 rounding lands at
+    ~2^-24 * mc / sqrt(M) of a cancelling result (~2e-8 at M ~ 7000)."""
+    require_full_f32(A32)
+    mc = _MIXED_CHUNK if mc is None else mc
+    Bn, M = A32.shape
+    D = B32.shape[1]
+    nc = -(-M // mc)
+    pad = nc * mc - M
+    if pad:
+        A32 = torch.nn.functional.pad(A32, (0, pad))
+        B32 = torch.nn.functional.pad(B32, (0, 0, 0, pad))
+    part = torch.bmm(A32.reshape(Bn, nc, mc).transpose(0, 1),
+                     B32.reshape(nc, mc, D))              # (nc, B, D) f32
+    return torch.sum(part.to(torch.float64), dim=0)
+
+
+def _rowsum_f32_chunkacc(A32: torch.Tensor, mc: int | None = None):
+    """sum(A32, dim=1) with f64 chunk accumulation: (B, M) f32 -> (B,) f64."""
+    mc = _MIXED_CHUNK if mc is None else mc
+    Bn, M = A32.shape
+    nc = -(-M // mc)
+    pad = nc * mc - M
+    if pad:
+        A32 = torch.nn.functional.pad(A32, (0, pad))
+    part = torch.sum(A32.reshape(Bn, nc, mc), dim=2)    # (B, nc) f32
+    return torch.sum(part.to(torch.float64), dim=1)
+
+
+def _mixed_forces(Xq_t, c, Xtch, Xtcl, wh, wl, ct_c, A_exp, A_exp1):
+    """Descriptor-space forces (tile, D) of the mixed matvec for one block
+    of query rows ``Xq_t`` (f64) against f64 weights: the centred dot, then
+    G @ Xqt and A_exp1 @ wt through split f32 products."""
+    from .df64 import split_f64
+
+    Xch, Xcl = split_f64(Xq_t - c)
+    dot = (_f32_mm(Xch, wh.T) + _f32_mm(Xcl, wh.T) + _f32_mm(Xch, wl.T)
+           - ct_c[None, :])                             # (B, M) f64
+    Gh, Gl = split_f64(A_exp * dot)
+    GX = (_gemm_f32_chunkacc(Gh, Xtch) + _f32_mm(Gl, Xtch)
+          + _f32_mm(Gh, Xtcl))                          # (B, D) f64
+    rowsum = _rowsum_f32_chunkacc(Gh) + torch.sum(Gl.to(torch.float64),
+                                                  dim=1)
+    # G @ Xqt = G @ Xtc + rowsum(G) * c  (undo the centring)
+    F1 = Xq_t * rowsum[:, None] - (GX + rowsum[:, None] * c[None, :])
+    A1h, A1l = split_f64(A_exp1)
+    F2 = (_gemm_f32_chunkacc(A1h, wh) + _f32_mm(A1l, wh)
+          + _f32_mm(A1h, wl))                           # (B, D) f64
+    return F1 - F2
+
+
+def _mixed_operands(cache: KernelCache, v: torch.Tensor):
+    """The per-iteration operands of the mixed matvec: the centre c, the
+    split centred training descriptors and cotangents, and ct_c."""
+    from .df64 import split_f64
+
+    N = cache.n_train
+    A = cache.S.shape[1]
+    w64 = d_desc_dot_vec(cache.Jc, cache.S, v.reshape(N, A, 3))  # (N, D)
+    wt64 = perm_expand_w(w64, cache.P_idx)                      # (M, D)
+    c = torch.mean(cache.Xq, dim=0)                             # (D,)
+    Xtc = cache.Xqt - c                                         # (M, D)
+    ct_c = torch.sum(Xtc * wt64, dim=1)                         # (M,)
+    wh, wl = split_f64(wt64)
+    Xtch, Xtcl = split_f64(Xtc)
+    return c, Xtch, Xtcl, wh, wl, ct_c
+
+
+def matvec_ref_mixed(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
+    """K_ref @ v with f32 products and ~sqrt(_MIXED_CHUNK) * 2^-24 relative
+    error, from the f64 cache (the splits are made per call)."""
+    ops = _mixed_operands(cache, v)
+    F_desc = _mixed_forces(cache.Xq, *ops, cache.A_exp, cache.A_exp1)
+    return vec_dot_d_desc(cache.Jc, cache.S, F_desc).reshape(-1)
+
+
+def _matvec_ref_mixed_otf(cache: KernelCache, v: torch.Tensor
+                          ) -> torch.Tensor:
+    """The mixed matvec on an on-the-fly cache: per row tile of
+    ``_otf_tile`` rows (the last a shorter slice) the distances come from
+    three split f32 products of the Gram trick (~1e-9 absolute in dist),
+    exp and the weights in f64, then ``_mixed_forces``."""
+    from .df64 import split_f64
+
+    N = cache.n_train
+    c0 = 5.0 / (3.0 * cache.sig**2)
+    ops = _mixed_operands(cache, v)
+    nb = torch.sum(cache.Xqt * cache.Xqt, dim=1)                # (M,)
+    Xqth, Xqtl = split_f64(cache.Xqt)
+    F_desc = torch.empty_like(cache.Xq)
+    tile = _otf_tile(N, cache.Xqt.shape[0])
+    for start in range(0, N, tile):
+        Xq_t = cache.Xq[start:start + tile]                     # (tile, D)
+        na = torch.sum(Xq_t * Xq_t, dim=1)
+        Xh, Xl = split_f64(Xq_t)
+        g = _f32_mm(Xh, Xqth.T) + _f32_mm(Xl, Xqth.T) + _f32_mm(Xh, Xqtl.T)
+        dist = torch.sqrt(torch.clamp(na[:, None] + nb[None, :] - 2.0 * g,
+                                      min=0.0))
+        A_exp = c0 * torch.exp(-dist)
+        F_desc[start:start + tile] = _mixed_forces(
+            Xq_t, *ops, A_exp, A_exp * (1.0 + dist))
+    return vec_dot_d_desc(cache.Jc, cache.S, F_desc).reshape(-1)
+
+
+def matvec_psd_mixed(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
+    """(K + lam*I) @ v through the mixed matvec (cached pairwise weights when
+    present, on-the-fly recomputation otherwise)."""
+    if cache.A_exp is None:
+        return cache.lam * v - _matvec_ref_mixed_otf(cache, v)
+    return cache.lam * v - matvec_ref_mixed(cache, v)
+
+
+# ---------------------------------------------------------------------------
+# Ozaki exact-slice matvec (ops/ozaki.py): f64-grade from exact f32 products
+# ---------------------------------------------------------------------------
+#
+# The three per-iteration (N, M)-shaped products run through ops.ozaki's
+# error-free digit products: ~2^-48 of the operand scale, inside the ~1e-12
+# lam-floor bound that the f32-grade matvecs miss.  The iteration-invariant
+# operands (Xq, Xqt, A_exp1) are sliced once per solve (OzakiMatvecState);
+# each iteration slices its own wt (M, D) and G (N, M).  Everything outside
+# the products stays f64, as in matvec_ref.
+
+
+@dataclass
+class OzakiMatvecState:
+    """KernelCache plus the digit decompositions of the iteration-invariant
+    product operands.  Cached (pairwise) mode uses Xq_sl / Xqt_sl / Ae1_sl;
+    on-the-fly mode (``cache.A_exp is None``) uses Xqt_sl / Xqt_sl_T and
+    slices the per-tile operands in the loop."""
+
+    cache: KernelCache
+    Xq_sl: tuple | None     # slice_digits(Xq, axis=1):    product 1 left
+    Xqt_sl: tuple           # slice_digits(Xqt, axis=0):   product 2 right
+    Ae1_sl: tuple | None    # slice_digits(A_exp1, axis=1): product 3 left
+    Xqt_sl_T: tuple | None = None  # slice_digits(Xqt.T, axis=0): distance
+    #                                Gram's right side (on-the-fly only)
+
+
+# On-the-fly digits: at M = 112k the JAX package's 6-digit on-the-fly path
+# measured 1.3e-10 against f64 and stalled CG; 7 digits measured 3.5e-13 at
+# n = 503,982 (on a TPU).  MLFF_OZAKI_DIST64=1 computes the distance Gram in
+# plain f64 instead of through the digits (default off, as there).
+_OZ_DIGITS = int(os.environ.get("MLFF_OZAKI_DIGITS", "7"))
+_OZ_DIST64 = os.environ.get("MLFF_OZAKI_DIST64", "0") == "1"
+
+
+def ozaki_matvec_state(cache: KernelCache) -> OzakiMatvecState:
+    """The once-per-solve sliced operands (~s bf16 copies of each: the
+    (N, M) A_exp1 digits exist in cached mode only)."""
+    from . import ozaki
+
+    if cache.A_exp1 is None:
+        return OzakiMatvecState(
+            cache=cache, Xq_sl=None,
+            Xqt_sl=ozaki.slice_digits(cache.Xqt, axis=0, s=_OZ_DIGITS),
+            Ae1_sl=None,
+            Xqt_sl_T=ozaki.slice_digits(cache.Xqt.T, axis=0, s=_OZ_DIGITS))
+    return OzakiMatvecState(
+        cache=cache,
+        Xq_sl=ozaki.slice_digits(cache.Xq, axis=1),
+        Xqt_sl=ozaki.slice_digits(cache.Xqt, axis=0),
+        Ae1_sl=ozaki.slice_digits(cache.A_exp1, axis=1))
+
+
+def _ozaki_cotangents(cache: KernelCache, v: torch.Tensor):
+    N = cache.n_train
+    A = cache.S.shape[1]
+    w = d_desc_dot_vec(cache.Jc, cache.S, v.reshape(N, A, 3))  # (N, D)
+    wt = perm_expand_w(w, cache.P_idx)                         # (M, D)
+    return wt, torch.sum(cache.Xqt * wt, dim=1)                # (M,)
+
+
+def matvec_ref_ozaki(state: OzakiMatvecState, v: torch.Tensor
+                     ) -> torch.Tensor:
+    """K_ref @ v with exact-slice products (~2^-48 against matvec_ref)."""
+    from . import ozaki
+
+    cache = state.cache
+    wt, ct = _ozaki_cotangents(cache, v)
+    # product 1: dot = Xq @ wt^T  (contraction D)
+    dot = ozaki.gemm_presliced(
+        state.Xq_sl, ozaki.slice_digits(wt.T, axis=0)) - ct[None, :]
+    G = cache.A_exp * dot
+    # product 2: G @ Xqt  (contraction M)
+    F1 = cache.Xq * torch.sum(G, dim=1, keepdim=True) \
+        - ozaki.gemm_presliced(ozaki.slice_digits(G, axis=1), state.Xqt_sl)
+    # product 3: A_exp1 @ wt  (contraction M)
+    F2 = ozaki.gemm_presliced(state.Ae1_sl, ozaki.slice_digits(wt, axis=0))
+    return vec_dot_d_desc(cache.Jc, cache.S, F1 - F2).reshape(-1)
+
+
+def _matvec_ref_ozaki_otf(state: OzakiMatvecState, v: torch.Tensor
+                          ) -> torch.Tensor:
+    """The Ozaki matvec on an on-the-fly cache: per row tile of
+    ``_otf_tile`` rows (the last a shorter slice), the distance Gram and the
+    three force products all run as exact-slice products at
+    ``_OZ_DIGITS``; distances and weights are f64.  The tile keeps the
+    (segments, tile, D) f32 partials of the M-deep products and the
+    (tile, M) weights and digits within a few GB at n = 157k."""
+    from . import ozaki
+
+    cache = state.cache
+    N = cache.n_train
+    s = _OZ_DIGITS
+    c0 = 5.0 / (3.0 * cache.sig**2)
+    wt, ct = _ozaki_cotangents(cache, v)
+    nq = torch.sum(cache.Xqt * cache.Xqt, dim=1)              # (M,)
+    wtT_sl = ozaki.slice_digits(wt.T, axis=0, s=s)            # product 1
+    wt_sl = ozaki.slice_digits(wt, axis=0, s=s)               # product 3
+    F_desc = torch.empty_like(cache.Xq)
+    tile = _otf_tile(N, cache.Xqt.shape[0])
+    for start in range(0, N, tile):
+        Xq_t = cache.Xq[start:start + tile]                   # (tile, D)
+        Xq_t_sl = ozaki.slice_digits(Xq_t, axis=1, s=s)
+        if _OZ_DIST64:
+            g = Xq_t @ cache.Xqt.T
+        else:
+            g = ozaki.gemm_presliced(Xq_t_sl, state.Xqt_sl_T)
+        na = torch.sum(Xq_t * Xq_t, dim=1)
+        dist = torch.sqrt(torch.clamp(na[:, None] + nq[None, :] - 2.0 * g,
+                                      min=0.0))
+        A_exp = c0 * torch.exp(-dist)
+        A_exp1 = A_exp * (1.0 + dist)
+        dot = ozaki.gemm_presliced(Xq_t_sl, wtT_sl) - ct[None, :]
+        G = A_exp * dot
+        F1 = Xq_t * torch.sum(G, dim=1, keepdim=True) - ozaki.gemm_presliced(
+            ozaki.slice_digits(G, axis=1, s=s), state.Xqt_sl)
+        F2 = ozaki.gemm_presliced(ozaki.slice_digits(A_exp1, axis=1, s=s),
+                                  wt_sl)
+        F_desc[start:start + tile] = F1 - F2
+    return vec_dot_d_desc(cache.Jc, cache.S, F_desc).reshape(-1)
+
+
+def matvec_psd_ozaki(state: OzakiMatvecState, v: torch.Tensor
+                     ) -> torch.Tensor:
+    """(K + lam*I) @ v on the Ozaki sliced operator (cached or on the fly)."""
+    if state.cache.A_exp is None:
+        return state.cache.lam * v - _matvec_ref_ozaki_otf(state, v)
+    return state.cache.lam * v - matvec_ref_ozaki(state, v)
 
 
 # ---------------------------------------------------------------------------
@@ -1045,8 +1358,8 @@ def matvec_ref_ecstr(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
     A = cache.S.shape[1]
     v_F, v_E = v[:N * A * 3], v[N * A * 3:]
     w = d_desc_dot_vec(cache.Jc, cache.S, v_F.reshape(N, A, 3))   # (N, D)
-    wt = perm_expand_w(w, cache.P_idx)                            # (M, D)
-    vE_lin = torch.repeat_interleave(v_E, cache.n_perms)          # (M,)
+    wt = perm_expand_w(_at_cache_dtype(cache, w), cache.P_idx)    # (M, D)
+    vE_lin = torch.repeat_interleave(v_E, cache.n_perms).to(wt.dtype)  # (M,)
     # e_out starts as sum_m A_exp1 dot / q (predict.py:207)
     F_desc, e_out = _desc_forces_x(cache.Xqt, cache.sig, cache.Xq,
                                    cache.A_exp, cache.A_exp1, wt)
@@ -1056,9 +1369,9 @@ def matvec_ref_ecstr(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
     H = cache.A_exp1 * vE_lin[None, :]                            # (N, M)
     F_desc = F_desc + (cache.Xq * torch.sum(H, dim=1, keepdim=True)
                        - H @ cache.Xqt) / q
-    out_F = vec_dot_d_desc(cache.Jc, cache.S, F_desc)
+    out_F = vec_dot_d_desc(cache.Jc, cache.S, F_desc.to(cache.Jc.dtype))
     e_out = e_out + K_ee @ vE_lin                     # predict.py:214-218
-    return torch.cat([out_F.reshape(-1), -e_out])
+    return torch.cat([out_F.reshape(-1), -e_out.to(out_F.dtype)])
 
 
 def matvec_psd_ecstr(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:

@@ -15,10 +15,14 @@ sgdml/solvers/iterative_inpoints.py:1011-1066):
   * the square all-pairs matvec for large-A molecules
     (``ops.kernel.SquareCache``), chosen by the JAX package's rule,
   * energy constraints (``task["use_E_cstr"]``): the system of n + N rows,
-    on the pairwise cache and the packed matvec only, as in the JAX package.
-
-Not in this module yet (each raises NotImplementedError naming its ROADMAP
-item): the reduced-precision matvecs and the ozaki apply.
+    on the pairwise cache and the packed matvec only, as in the JAX package,
+  * the precision options of the task: ``matvec_dtype`` "float64" (the
+    default), "float32" (the product operands downcast), "mixed" (centred
+    split f32 products) or "ozaki" (exact-slice products), the last three
+    with f64 residual replacement (``residual_replacement``, on by
+    default, governs the ozaki one); ``apply_impl`` "xla", "df64" or
+    "ozaki".  With energy constraints "mixed" and "ozaki" take the f64
+    matvec, the JAX package's rule.
 """
 
 from __future__ import annotations
@@ -63,16 +67,19 @@ class IterativeResult:
     info: dict = field(default_factory=dict)
 
 
+MATVEC_DTYPES = ("float64", "float32", "mixed", "ozaki")
+
+
 def _check_task(task: dict) -> str:
-    """Raise for the task options the port does not have yet; returns
-    ``apply_impl``."""
+    """Raise ValueError for an unknown ``apply_impl`` or ``matvec_dtype``
+    (the JAX package takes an unknown ``matvec_dtype`` as "float64");
+    returns ``apply_impl``."""
     apply_impl = str(task.get("apply_impl", "xla"))
-    if apply_impl == "ozaki":
-        raise NotImplementedError(
-            "the ozaki apply and factor-build engines are ROADMAP module "
-            "item 11")
-    if apply_impl not in ("xla", "df64"):
+    if apply_impl not in ("xla", "df64", "ozaki"):
         raise ValueError(f"unknown apply_impl {apply_impl!r}")
+    matvec_dtype = str(task.get("matvec_dtype", "float64"))
+    if matvec_dtype not in MATVEC_DTYPES:
+        raise ValueError(f"unknown matvec_dtype {matvec_dtype!r}")
     return apply_impl
 
 
@@ -96,6 +103,8 @@ def build_preconditioner(
 
     def _factor_precon(L):
         P = pc.woodbury_from_factor(L, lam)
+        if apply_impl == "ozaki":
+            return pc.ozaki_from_split(P)
         if apply_impl != "df64":
             return P
         # the JAX package's rule, kept verbatim so that the same task builds
@@ -205,6 +214,43 @@ def _square_matvec_wins(spec: DescriptorSpec, cache: knl.KernelCache) -> bool:
     return A >= 64 * P and sq_bytes < int(4e9)
 
 
+def _matvec_for(task: dict, cache: knl.KernelCache, use_E_cstr: bool):
+    """(matvec, exact_matvec) of the solve by ``task["matvec_dtype"]``:
+    exact_matvec is the f64 operator of residual replacement (None: no
+    replacement).  The preconditioner was built from the f64 cache in every
+    case."""
+    mv = knl.matvec_psd_ecstr if use_E_cstr else knl.matvec_psd
+    f64 = functools.partial(mv, cache)
+    matvec_dtype = str(task.get("matvec_dtype", "float64"))
+    if matvec_dtype == "float32":
+        # the three products on f32 operands (TF32 off); without residual
+        # replacement the ~5e-7 matvec error drifts the recursive residual
+        # and fakes convergence
+        log.info("matvec: float32 products, f64 residual replacement")
+        return functools.partial(mv, knl.downcast_cache(cache)), f64
+    if matvec_dtype in ("ozaki", "mixed") and use_E_cstr:
+        log.info("matvec: %r has no energy-constrained form; the f64 "
+                 "matvec, as in the JAX package", matvec_dtype)
+        return f64, None
+    if matvec_dtype == "ozaki":
+        # f64-grade exact-slice products, inside the lam-floor bound;
+        # residual replacement stays on as a backstop unless the task
+        # turns it off
+        exact = f64 if task.get("residual_replacement", True) else None
+        log.info("matvec: ozaki exact-slice products%s",
+                 ", f64 residual replacement" if exact is not None else "")
+        return functools.partial(knl.matvec_psd_ozaki,
+                                 knl.ozaki_matvec_state(cache)), exact
+    if matvec_dtype == "mixed":
+        # ~1e-7-grade; the JAX package measured divergence where the
+        # spectrum reaches the ridge floor (calibrated ethanol, n = 31,482:
+        # residual 3500x ||b|| by iteration 50), so it is an option only
+        log.info("matvec: mixed precision (centred f32 products, f64 chunk "
+                 "sums), f64 residual replacement")
+        return functools.partial(knl.matvec_psd_mixed, cache), f64
+    return f64, None
+
+
 def solve_iterative(
     spec: DescriptorSpec,
     cache: knl.KernelCache,
@@ -223,10 +269,6 @@ def solve_iterative(
     """Train alphas by PCG (reference Iterative.solve,
     iterative_solver.py:620-1108)."""
     _check_task(task)
-    matvec_dtype = str(task.get("matvec_dtype", "float64"))
-    if matvec_dtype != "float64":
-        raise NotImplementedError(
-            f"matvec_dtype {matvec_dtype!r} is ROADMAP module items 10-11")
     use_E_cstr = bool(task.get("use_E_cstr", False))
     if use_E_cstr:
         knl.require_pairwise(cache)
@@ -274,8 +316,7 @@ def solve_iterative(
         info["eigvals"] = compute_precon_spectrum(spec, cache, P_apply)
         info["eigvals_K"] = compute_precon_spectrum(spec, cache, None)
 
-    matvec = functools.partial(
-        knl.matvec_psd_ecstr if use_E_cstr else knl.matvec_psd, cache)
+    matvec, exact_matvec = _matvec_for(task, cache, use_E_cstr)
     info["matvec_impl"] = "packed"
     impl = str(task.get("matvec_impl", "auto"))
     # the square layout has no energy-constrained form (nor in the JAX
@@ -283,7 +324,8 @@ def solve_iterative(
     if not use_E_cstr and (impl == "square" or (
             impl == "auto" and _square_matvec_wins(spec, cache))):
         # large-A molecules: the square all-pairs layout replaces the dense
-        # incidence-matrix products (ops.kernel.SquareCache)
+        # incidence-matrix products (ops.kernel.SquareCache), whatever
+        # matvec_dtype chose; its residual replacement stays (JAX rule)
         sq = knl.build_cache_square(
             np.asarray(task["R_train"], dtype=np.float64),
             np.asarray(task.get("perms", np.arange(spec.n_atoms)[None])),
@@ -319,6 +361,7 @@ def solve_iterative(
             callback=callback, checkpoint_callback=ckpt,
             it0=num_iters0,
             break_on_stagnation=allow_restarts,
+            exact_matvec=exact_matvec,
         )
         if result.num_iters - it0_initial >= maxiter:
             break

@@ -15,7 +15,15 @@ PyTorch port of the main slice of ``mlff_tpu.solvers.preconditioners``
     column blocks, whitened in place block by block,
   * ``apply_impl="df64"``: B stored as f32 (hi, lo[, mid]) words and the two
     (n, m) passes of every apply run through the hand-written CUDA kernels
-    of ``ops/df64_gemv.py``.
+    of ``ops/df64_gemv.py``,
+  * ``apply_impl="ozaki"``: B stored as 7 bf16 digit planes with per-column
+    power-of-two scales (``ozaki_from_split``), each pass a sum of exact
+    f32 digit products (``ops/ozaki.py``),
+  * the factor-build engine (``MLFF_BUILD_GEMM=ozaki``): the whiten and Gram
+    products of the split factor, plain or column-blocked, and the Gram of
+    ``woodbury_from_factor`` through exact-slice products at 7 digits,
+  * the automatic column-block switch above a per-buffer memory ceiling
+    (``utils/hbm.py``: only when ``MLFF_TPU_HBM_CEILING_GB`` sets one).
 
   * ``woodbury_from_factor``: the split apply of P = L L^T + lam I for any
     low-rank factor L (the pivoted-Cholesky family, the eigenvector family),
@@ -27,9 +35,7 @@ PyTorch port of the main slice of ``mlff_tpu.solvers.preconditioners``
 
 All builders work in the PSD convention (K + lam*I).  With ``use_E_cstr`` the
 Nystrom columns (force columns still) and the eigenvector family's dense
-kernel span the energy-constrained system of n + N rows.  Not in this module
-yet (it raises NotImplementedError naming its ROADMAP item): the ozaki apply
-and factor-build engines.
+kernel span the energy-constrained system of n + N rows.
 """
 
 from __future__ import annotations
@@ -46,13 +52,121 @@ from .. import resolve_device
 from ..ops import df64
 from ..ops import df64_gemv
 from ..ops import kernel as knl
+from ..ops import ozaki
 from ..ops.descriptor import DescriptorSpec
+from ..utils.hbm import post_d2h_ceiling_bytes
 from ..utils.log import get_logger
 
 log = get_logger(__name__)
 
-# rows per chunk of the column-blocked whitening (bounds its transients)
+# rows per chunk of the column-blocked whitening and of the exact-slice
+# build products (bounds their transients)
 _GEMM_ROW_CHUNK = 4096
+
+# ---------------------------------------------------------------------------
+# Factor-build product engine.  The O(n m^2) whiten and Gram products run as
+# cuBLAS f64 products ("f64") or through the Ozaki exact-slice engine
+# ("ozaki", ops/ozaki.py, s = _BUILD_DIGITS: ~2^-56 of the operand scales).
+# MLFF_BUILD_GEMM=f64|ozaki forces one engine; "auto" (the default) is f64,
+# read once per process, as in the JAX package.
+# ---------------------------------------------------------------------------
+_BUILD_GEMM_MODE: str | None = None
+_BUILD_DIGITS = int(os.environ.get("MLFF_BUILD_DIGITS", "7"))
+
+
+def _build_mode() -> str:
+    """The build engine, "f64" or "ozaki", from ``MLFF_BUILD_GEMM`` (cached
+    on first use; reset ``_BUILD_GEMM_MODE`` to None to read it again)."""
+    global _BUILD_GEMM_MODE
+    if _BUILD_GEMM_MODE is None:
+        mode = os.environ.get("MLFF_BUILD_GEMM", "auto")
+        if mode == "auto":
+            mode = "f64"
+        if mode not in ("f64", "ozaki"):
+            raise ValueError(f"unknown MLFF_BUILD_GEMM {mode!r}")
+        _BUILD_GEMM_MODE = mode
+    return _BUILD_GEMM_MODE
+
+
+def _gram_impl_for(n_rows: int) -> str:
+    """The Gram engine of a factor of ``n_rows`` rows: the build mode at
+    every n.  The JAX package sends its "auto" Gram to ozaki from 120,000
+    rows (``MLFF_OZAKI_GRAM_MIN_ROWS``) because its TPU's emulated f64 Gram
+    carried a 4.09e-11 bias at n = 157,500, past the 0.1 lam guard; the
+    port's Gram is a native f64 product, so the row count selects nothing
+    here and that variable is not read."""
+    return _build_mode()
+
+
+def _oz_slice_T(X: torch.Tensor, s: int):
+    """One slicing pass serving both operands of a Gram X^T X: (left, right)
+    with right = slice_digits(X, axis=0) and left its transpose (per-column
+    scales of X are per-row scales of X^T)."""
+    sc, dg = ozaki.slice_digits(X, axis=0, s=s)
+    return (sc.T, [d.T for d in dg]), (sc, dg)
+
+
+def _gram_acc_ozaki(acc: torch.Tensor, tr: torch.Tensor, s: int
+                    ) -> torch.Tensor:
+    """acc + tr^T tr through exact-slice products: error ~2^-(8s) of the
+    column scales, independent of the row count."""
+    left, right = _oz_slice_T(tr, s)
+    return acc + ozaki.gemm_presliced(left, right)
+
+
+def _gram_pair_acc_ozaki(acc, Ab, Bb, s: int):
+    """acc + Ab^T Bb, exact-slice."""
+    left, _ = _oz_slice_T(Ab, s)
+    return acc + ozaki.gemm_presliced(left, ozaki.slice_digits(Bb, axis=0,
+                                                               s=s))
+
+
+def _gram(B: torch.Tensor, impl: str, chunk: int = _GEMM_ROW_CHUNK
+          ) -> torch.Tensor:
+    """B^T B (m, m): one f64 product, or exact-slice products over row
+    chunks."""
+    if impl == "f64":
+        return B.T @ B
+    acc = torch.zeros((B.shape[1], B.shape[1]), dtype=B.dtype,
+                      device=B.device)
+    for start in range(0, B.shape[0], chunk):
+        acc = _gram_acc_ozaki(acc, B[start:start + chunk], _BUILD_DIGITS)
+    return acc
+
+
+def _whiten_gram(K_nm: torch.Tensor, W1: torch.Tensor, impl: str,
+                 chunk: int = _GEMM_ROW_CHUNK):
+    """B = K_nm W1 and inner = B^T B (the Gram of the stored B itself).
+    "f64": two cuBLAS products.  "ozaki": over row chunks, W1 sliced once,
+    each chunk's kernel rows sliced for the whiten and its whitened rows
+    once for both Gram operands."""
+    if impl == "f64":
+        B = K_nm @ W1
+        return B, B.T @ B
+    s = _BUILD_DIGITS
+    W1_sl = ozaki.slice_digits(W1, axis=0, s=s)
+    B = torch.empty_like(K_nm)
+    inner = torch.zeros((W1.shape[1], W1.shape[1]), dtype=K_nm.dtype,
+                        device=K_nm.device)
+    for start in range(0, K_nm.shape[0], chunk):
+        tr = ozaki.gemm_presliced(
+            ozaki.slice_digits(K_nm[start:start + chunk], axis=1, s=s), W1_sl)
+        B[start:start + chunk] = tr
+        inner = _gram_acc_ozaki(inner, tr, s)
+    return B, inner
+
+
+def _gram_probe(B: torch.Tensor, inner: np.ndarray) -> float:
+    """Max |inner - B^T B| over the full diagonal and 8 seeded cross
+    entries, each from an independent f64 column dot: the guard of the
+    split factor's self-consistency."""
+    m = inner.shape[0]
+    rng_p = np.random.default_rng(0)
+    ii = np.concatenate([np.arange(m), rng_p.integers(0, m, size=min(8, m))])
+    jj = np.concatenate([np.arange(m), rng_p.integers(0, m, size=min(8, m))])
+    exact = torch.sum(B[:, torch.as_tensor(ii, device=B.device)]
+                      * B[:, torch.as_tensor(jj, device=B.device)], dim=0)
+    return float(np.abs(inner[ii, jj] - exact.cpu().numpy()).max())
 
 
 class _StageTimer:
@@ -133,6 +247,12 @@ class WoodburySplitPreconditioner:
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         return woodbury_split_apply(self, v)
+
+    def fused_T(self) -> torch.Tensor:
+        """(m, n) fused factor W2^T B^T: for diagnostics and
+        ``solvers/ir_cg.py::ir_pcg_kernel`` only (the apply never forms it,
+        see the class docstring)."""
+        return (self.B @ self.W2).T
 
 
 def woodbury_split_apply(P: WoodburySplitPreconditioner,
@@ -348,6 +468,99 @@ def df64_from_colblocks(Bs, W2: torch.Tensor, lam: float,
         info=dict(info or {}, apply_impl="df64", components=2))
 
 
+@dataclass
+class OzakiApplyPreconditioner:
+    """Split Woodbury apply through an Ozaki digit decomposition of B.
+
+    B is stored as s = 7 integer bf16 digit planes with per-column
+    power-of-two scales: 56 bits, below f64's own 53-bit mantissa, so the
+    frozen operator carries no quantization (unlike the 48-bit 2-component
+    df64 apply).  Each pass contracts digit i of B against all needed digits
+    of the (small, per-apply-sliced) vector in one segmented f32 product,
+    exact by ``ops/ozaki.py``'s bounds.  Pass 2 folds the column scales into
+    the small vector before slicing it, so its products sit on one grid per
+    digit pair.  Rows are zero-padded to a multiple of 256 (inert); the f64
+    B is not kept: the digits (~1.75x its bytes) replace it."""
+
+    B_dig: tuple          # s x (n_pad, m) bf16 integer digits
+    sB: torch.Tensor      # (m,) f64 per-column power-of-two scales
+    W2: torch.Tensor      # (m, m)
+    lam: float
+    info: dict | None = None
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        return ozaki_woodbury_apply(self, v)
+
+
+def ozaki_from_split(P: WoodburySplitPreconditioner, s: int = 7
+                     ) -> OzakiApplyPreconditioner:
+    """The Ozaki-digit form of a split preconditioner.  P is consumed: its
+    f64 B is dropped after slicing (``P.B`` becomes None)."""
+    n, m = P.B.shape
+    n_pad = -(-n // 256) * 256
+    B = torch.nn.functional.pad(P.B, (0, 0, 0, n_pad - n))
+    P.B = None
+    scale, digits = ozaki.slice_digits(B, axis=0, s=s)
+    del B
+    info = dict(P.info, apply_impl="ozaki", digits=s,
+                digit_bytes=sum(d.numel() * d.element_size() for d in digits))
+    return OzakiApplyPreconditioner(B_dig=tuple(digits),
+                                    sB=scale.reshape(-1), W2=P.W2,
+                                    lam=P.lam, info=info)
+
+
+def _ozaki_gemv_digits(B_dig: tuple, x_dig: list, sx: torch.Tensor,
+                       transpose: bool) -> torch.Tensor:
+    """Sum over digit pairs (i, j), i + j < s, of 256^-(i+j+2) (B_i^T X_j)
+    (``transpose``: contraction over rows) or 256^-(i+j+2) (B_i X_j)
+    (contraction over columns), with exact 256-deep f32 segment sums and
+    f64 sums across segments and pairs; times ``sx``.  ``x_dig`` entries
+    are (len_contract, 1) integer digits.  Digit i of B is read once: all
+    its partners stack into one product."""
+    s = len(B_dig)
+    n_pad, m = B_dig[0].shape
+    out = None
+    for i, Bi in enumerate(B_dig):
+        J = s - i
+        X = ozaki._f32(torch.cat([x_dig[j] for j in range(J)], dim=1))
+        Bi = ozaki._f32(Bi)
+        if transpose:
+            # u_part[c, j] = sum_r Bi[r, c] X[r, j], segmented over r
+            n_seg = n_pad // 256
+            part = torch.bmm(Bi.reshape(n_seg, 256, m).transpose(1, 2),
+                             X.reshape(n_seg, 256, J))     # (S, m, J)
+        else:
+            # y_part[r, j] = sum_c Bi[r, c] X[c, j], segmented over c
+            m_seg = -(-m // 256)
+            Bp = torch.nn.functional.pad(Bi, (0, m_seg * 256 - m))
+            Xp = torch.nn.functional.pad(X, (0, 0, 0, m_seg * 256 - m))
+            part = torch.bmm(Bp.reshape(n_pad, m_seg, 256).transpose(0, 1),
+                             Xp.reshape(m_seg, 256, J))    # (S, n_pad, J)
+        acc = torch.sum(part.to(torch.float64), dim=0)
+        w = 256.0 ** -(i + 2.0 + torch.arange(J, dtype=torch.float64,
+                                              device=acc.device))
+        term = torch.sum(acc * w[None, :], dim=1)
+        out = term if out is None else out + term
+    return out * sx
+
+
+def ozaki_woodbury_apply(P: OzakiApplyPreconditioner, v: torch.Tensor
+                         ) -> torch.Tensor:
+    """lam^-1 (v - B W2 W2^T B^T v) through the digit decomposition."""
+    n = v.shape[0]
+    n_pad = P.B_dig[0].shape[0]
+    s = len(P.B_dig)
+    vp = torch.nn.functional.pad(v, (0, n_pad - n))
+    sv, v_dig = ozaki.slice_digits(vp[:, None], axis=0, s=s)
+    u = _ozaki_gemv_digits(P.B_dig, v_dig, sv.reshape(()), True) * P.sB
+    x = P.W2 @ (P.W2.T @ u)
+    # fold the column scales into the small vector (one grid per digit
+    # pair for the exact segment sums)
+    sx2, x_dig = ozaki.slice_digits((x * P.sB)[:, None], axis=0, s=s)
+    y = _ozaki_gemv_digits(P.B_dig, x_dig, sx2.reshape(()), False)[:n]
+    return (v - y) / P.lam
+
+
 def _unpack_sym(packed: np.ndarray, m: int) -> np.ndarray:
     """Packed lower triangle -> full symmetric (m, m) on host."""
     M = np.zeros((m, m), dtype=packed.dtype)
@@ -443,9 +656,9 @@ def woodbury_from_factor(L: torch.Tensor, lam: float
     """The Woodbury apply operator of a low-rank factor L (n, k):
     P^-1 = lam^-1 (I - L (lam I + L^T L)^-1 L^T), applied through the split
     factors B = L and W2 = chol(lam I + L^T L)^-T (host LAPACK on the (k, k)
-    Gram).  The split apply never freezes a triangular solve's noise into a
-    (k, n) product: see WoodburySplitPreconditioner."""
-    inner = _host_sym(L.T @ L)
+    Gram, by the build engine).  The split apply never freezes a triangular
+    solve's noise into a (k, n) product: see WoodburySplitPreconditioner."""
+    inner = _host_sym(_gram(L, _gram_impl_for(L.shape[0])))
     W2 = torch.as_tensor(_host_inner_isqrt(inner, lam, "chol"),
                          dtype=torch.float64, device=L.device)
     B, W2 = _pad_split(L, W2)
@@ -474,20 +687,16 @@ def _nystrom_factor_split(
     W1 = torch.as_tensor(_host_whiten_factor(K_mm, rank_tol, host_decomp),
                          dtype=torch.float64, device=dev)
     t.mark("host_W1")
-    B = K_nm @ W1                                    # (n, m)
-    inner_dev = B.T @ B                              # Gram of the stored B
+    # the Gram engine is the build mode at every n (_gram_impl_for)
+    impl = _build_mode()
+    B, inner_dev = _whiten_gram(K_nm, W1, impl)      # (n, m), B^T B
     t.mark("whiten_gram")
     inner = _host_sym(inner_dev)
     # GUARD: inner must match B's true Gram to ~lam ABSOLUTE, or the
     # (w2 + lam)^-1/2 scaling silently stops preconditioning.  Probe the full
     # diagonal and a few random cross entries with independent column dots;
     # on failure recompute the whole Gram on host from the factor.
-    rng_p = np.random.default_rng(0)
-    ii = np.concatenate([np.arange(m), rng_p.integers(0, m, size=min(8, m))])
-    jj = np.concatenate([np.arange(m), rng_p.integers(0, m, size=min(8, m))])
-    exact = torch.sum(B[:, torch.as_tensor(ii, device=dev)]
-                      * B[:, torch.as_tensor(jj, device=dev)], dim=0)
-    probe_err = float(np.abs(inner[ii, jj] - exact.cpu().numpy()).max())
+    probe_err = _gram_probe(B, inner)
     fired = probe_err > max(0.1 * lam, 1e-12)
     if fired:
         log.warning(
@@ -502,7 +711,7 @@ def _nystrom_factor_split(
     t.mark("host_W2")
     t.report("nystrom factor stages")
     info = {"gram_guard_fired": bool(fired), "gram_probe_err": probe_err,
-            "stages": t.stages}
+            "stages": t.stages, "build_gemm": impl}
     return B, W2, info
 
 
@@ -518,31 +727,50 @@ def _nystrom_factor_eigh(
 
 
 def _whiten_colblock(K_c: torch.Tensor, K_prev, W1: torch.Tensor, off_c: int,
-                     offs_prev, chunk: int = _GEMM_ROW_CHUNK) -> torch.Tensor:
+                     offs_prev, chunk: int = _GEMM_ROW_CHUNK,
+                     impl: str = "f64") -> torch.Tensor:
     """B_c = sum_{j<=c} K_j W1[j-block, c-block], written over K_c row chunk
     by row chunk (each chunk's product is formed before it overwrites the
-    chunk).  Correct because W1 is upper triangular (chol whitening,
-    L^-T): block c of B depends only on K blocks j <= c, so a descending-c
-    sweep may overwrite block c while blocks j < c still hold kernel
-    columns."""
+    chunk), by the build engine ``impl``.  Correct because W1 is upper
+    triangular (chol whitening, L^-T): block c of B depends only on K
+    blocks j <= c, so a descending-c sweep may overwrite block c while
+    blocks j < c still hold kernel columns."""
     mc = K_c.shape[1]
-    W_cc = W1[off_c:off_c + mc, off_c:off_c + mc]
-    W_jcs = [W1[oj:oj + Kj.shape[1], off_c:off_c + mc]
-             for Kj, oj in zip(K_prev, offs_prev)]
-    for s in range(0, K_c.shape[0], chunk):
-        rows = slice(s, s + chunk)
-        blk = K_c[rows] @ W_cc
-        for Kj, W_jc in zip(K_prev, W_jcs):
-            blk += Kj[rows] @ W_jc
+    W = [W1[off_c:off_c + mc, off_c:off_c + mc]] + [
+        W1[oj:oj + Kj.shape[1], off_c:off_c + mc]
+        for Kj, oj in zip(K_prev, offs_prev)]
+    if impl == "ozaki":
+        s = _BUILD_DIGITS
+        W = [ozaki.slice_digits(Wj, axis=0, s=s) for Wj in W]
+
+        def prod(rows, Wj):
+            return ozaki.gemm_presliced(
+                ozaki.slice_digits(rows, axis=1, s=s), Wj)
+    else:
+        def prod(rows, Wj):
+            return rows @ Wj
+    for start in range(0, K_c.shape[0], chunk):
+        rows = slice(start, start + chunk)
+        blk = prod(K_c[rows], W[0])
+        for Kj, W_jc in zip(K_prev, W[1:]):
+            blk += prod(Kj[rows], W_jc)
         K_c[rows] = blk
     return K_c
 
 
-def _gram_pair(Ba: torch.Tensor, Bb: torch.Tensor) -> torch.Tensor:
+def _gram_pair(Ba: torch.Tensor, Bb: torch.Tensor, impl: str = "f64",
+               chunk: int = _GEMM_ROW_CHUNK) -> torch.Tensor:
     """Ba^T Bb (m_a, m_b): one f64 GEMM (true f64 at any depth on the card;
     the JAX package caps the depth because TPU f64 emulation degrades past
-    1024)."""
-    return Ba.T @ Bb
+    1024), or exact-slice products over row chunks (``impl="ozaki"``)."""
+    if impl == "f64":
+        return Ba.T @ Bb
+    acc = torch.zeros((Ba.shape[1], Bb.shape[1]), dtype=Ba.dtype,
+                      device=Ba.device)
+    for start in range(0, Ba.shape[0], chunk):
+        acc = _gram_pair_acc_ozaki(acc, Ba[start:start + chunk],
+                                   Bb[start:start + chunk], _BUILD_DIGITS)
+    return acc
 
 
 def _nystrom_factor_split_colblocked(
@@ -586,14 +814,16 @@ def _nystrom_factor_split_colblocked(
     W1 = torch.as_tensor(_host_whiten_factor(K_mm, rank_tol, "chol"),
                          dtype=torch.float64, device=dev)
     t.mark("host_W1")
+    mode = _build_mode()
+    gram_impl = _gram_impl_for(blocks[0].shape[0])
     for c in reversed(range(len(blocks))):
         blocks[c] = _whiten_colblock(blocks[c], blocks[:c], W1, offs[c],
-                                     offs[:c])
+                                     offs[:c], impl=mode)
     t.mark("whiten")
     inner = np.zeros((m, m))
     for a in range(len(blocks)):
         for b in range(a, len(blocks)):
-            G = _gram_pair(blocks[a], blocks[b]).cpu().numpy()
+            G = _gram_pair(blocks[a], blocks[b], gram_impl).cpu().numpy()
             inner[offs[a]:offs[a] + G.shape[0],
                   offs[b]:offs[b] + G.shape[1]] = G
             if b != a:
@@ -622,7 +852,7 @@ def _nystrom_factor_split_colblocked(
     t.report("nystrom colblock factor stages")
     info = {"gram_guard_fired": bool(fired), "gram_probe_err": probe_err,
             "stages": t.stages, "block_cols": int(block_cols),
-            "n_blocks": len(blocks)}
+            "n_blocks": len(blocks), "build_gemm": mode}
     return tuple(blocks), W2, info
 
 
@@ -731,27 +961,46 @@ def nystrom_preconditioner(
     a fused T in f64 whatever ``apply_impl`` says; kept for A/B comparison).
     ``apply_impl``: 'xla' names the plain f64 apply, as in the JAX package;
     'df64' the apply through the df64 CUDA kernels, with 3 components
-    unless the JAX package's memory rule asks for 2.
+    unless the JAX package's memory rule asks for 2; 'ozaki' the apply
+    through 7 exact-slice digit planes of B (``OzakiApplyPreconditioner``).
     ``block_cols``: keep B as column blocks of this width ('chol' whitening;
-    with 'df64' the blocks become one 2-component df64 factor).  The JAX
-    package also switches to blocks on its own above a TPU per-buffer
-    ceiling (ROADMAP module item 13); the port only when asked.
+    with 'df64' the blocks become one 2-component df64 factor; 'ozaki' has
+    no column-blocked form).  Without it, a factor above 0.9 of the
+    per-buffer ceiling of ``utils/hbm.py`` switches to blocks on its own
+    ('chol_host' or 'eigh' with the 'xla' apply), as in the JAX package; on
+    the card there is a ceiling only when ``MLFF_TPU_HBM_CEILING_GB`` sets
+    one.  The whiten and Gram products run by the build engine
+    (``MLFF_BUILD_GEMM``, ``_build_mode``).
     ``use_E_cstr``: the columns span the energy-constrained system (n + N
     rows); the inducing columns stay force columns.
     """
     if method not in ("chol_host", "eigh", "chol"):
         raise ValueError(f"unknown nystrom method {method!r}")
-    if apply_impl == "ozaki" or os.environ.get("MLFF_BUILD_GEMM") == "ozaki":
-        raise NotImplementedError(
-            "the ozaki apply and factor-build engines are ROADMAP module "
-            "item 11")
-    if apply_impl not in ("xla", "df64"):
+    if apply_impl not in ("xla", "df64", "ozaki"):
         raise ValueError(f"unknown apply_impl {apply_impl!r}")
+    _build_mode()          # an unknown MLFF_BUILD_GEMM raises before work
     inducing_idxs = np.sort(np.asarray(inducing_idxs))
+    ceiling = post_d2h_ceiling_bytes()
+    factor_bytes = cache.n * len(inducing_idxs) * 8
+    if (block_cols is None and ceiling is not None
+            and factor_bytes > 0.9 * ceiling
+            and method in ("chol_host", "eigh") and apply_impl == "xla"):
+        # past the per-buffer ceiling: store B as column blocks, of a width
+        # on the JAX package's 512-column grid
+        width = int(0.45 * ceiling / (cache.n * 8)) // 512 * 512
+        block_cols = max(512, width)
+        log.info(
+            "Nystrom factor (n=%d, m=%d, %.1f GB) exceeds the %.1f GB "
+            "per-buffer post-d2h ceiling — using column blocks of %d",
+            cache.n, len(inducing_idxs), factor_bytes / 1e9,
+            ceiling / 1e9, block_cols)
     t0 = time.perf_counter()
     if block_cols is not None:
         if method == "chol":
             raise ValueError("nystrom method 'chol' has no column-blocked form")
+        if apply_impl == "ozaki":
+            raise ValueError(
+                f"apply_impl {apply_impl!r} unsupported with column blocks")
         Bs, W2, info = _nystrom_factor_split_colblocked(
             spec, cache, inducing_idxs, lam, rank_tol, block_cols,
             use_E_cstr=use_E_cstr)
@@ -795,6 +1044,8 @@ def nystrom_preconditioner(
         # (f64 B + three f32 slices, ~20 bytes per element) passes 8 GB
         comps = 3 if P.B.numel() * 20 < int(8e9) else 2
         P = df64_from_split(P, components=comps)
+    elif apply_impl == "ozaki":
+        P = ozaki_from_split(P)
     return P
 
 

@@ -28,7 +28,13 @@ translation ties appear, see ``tests/test_torch_zoo.py``) and queues its
 steps without a host read.  The energy-constrained matvec, energy blocks and
 greedy loop on the card are held to the port's CPU run (1e-12, 1e-12, equal
 pivots and L to 1e-10); the df64 passes also run at the row count of the
-constrained main path's factor, 32,648.
+constrained main path's factor, 32,648.  The Ozaki engine's f32 digit
+products are exact on the card at the 2^24 bound (+-256 digits over
+256-deep segments, against an int64 product); an f32 product of the
+precision engines raises with TF32 on; the Ozaki matvec and apply on the
+card are held to the port's CPU result on the same bits within 1e-15 of
+the norm (the digit products are exact; the f64 parts round in another
+order).
 """
 
 import numpy as np
@@ -488,3 +494,101 @@ def test_constrained_greedy_loop_on_card_matches_cpu(small):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert float(res.pivot_values.min()) > 0
+
+
+def _cache_on(cache, dev):
+    """The same cache fields, bit for bit, on ``dev``."""
+    import dataclasses
+    return dataclasses.replace(cache, **{
+        f.name: getattr(cache, f.name).to(dev)
+        for f in dataclasses.fields(cache)
+        if torch.is_tensor(getattr(cache, f.name))})
+
+
+@pytest.mark.parametrize("pattern", ["all_plus", "alternating", "random"])
+def test_ozaki_digit_products_are_exact_on_the_card(small, pattern):
+    """Digits of +-256 over 256-deep segments reach the 2^24 bound of the
+    exact f32 sum; the card's f32 products (cuBLAS, TF32 off) equal an
+    int64 product of the same digits."""
+    from mlff_tpu_torch.ops import ozaki
+
+    rng = np.random.default_rng(3)
+    n, K, m = 64, 4 * 256, 48
+    if pattern == "all_plus":
+        a, b = np.full((n, K), 256), np.full((K, m), 256)
+    elif pattern == "alternating":
+        sign = np.where(np.arange(K) % 2 == 0, 1, -1)
+        a = np.full((n, K), 256) * sign[None, :]
+        b = np.full((K, m), -256) * sign[:, None]
+    else:
+        a = rng.choice([-256, 256], size=(n, K))
+        b = rng.choice([-256, 256], size=(K, m))
+    want = (a.reshape(n, 4, 256).transpose(1, 0, 2)
+            @ b.reshape(4, 256, m)).sum(axis=0)            # int64
+    got = ozaki._seg_matmul(
+        ozaki._f32(torch.as_tensor(a, dtype=torch.bfloat16, device="cuda")),
+        ozaki._f32(torch.as_tensor(b, dtype=torch.bfloat16, device="cuda")),
+        4)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.astype(np.float64))
+
+
+def test_f32_products_raise_with_tf32_on(small):
+    from mlff_tpu_torch.ops import ozaki
+
+    A = torch.ones((8, 300), dtype=torch.float64, device="cuda")
+    _, c_gpu, _ = _random_caches()
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            ozaki.gemm(A, A.T)
+        with pytest.raises(RuntimeError, match="TF32"):
+            knl.matvec_psd_mixed(c_gpu, torch.ones(c_gpu.n, device="cuda",
+                                                   dtype=torch.float64))
+        with pytest.raises(RuntimeError, match="TF32"):
+            knl.matvec_psd(knl.downcast_cache(c_gpu),
+                           torch.ones(c_gpu.n, device="cuda",
+                                      dtype=torch.float64))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("pairwise", [True, False], ids=["cached", "otf"])
+def test_ozaki_matvec_on_card_matches_cpu(small, pairwise):
+    """The same cache bits on both devices: the exact digit products leave
+    only the f64 parts' rounding order, 1e-15 of the norm."""
+    ds, perms = small
+    spec = dsc.make_spec(9)
+    X, Jc = dsc.descriptors_from_R(spec, torch.as_tensor(ds["R"][:30]))
+    c_cpu = knl.build_cache(X, Jc, dsc.incidence_matrix(spec),
+                            dsc.desc_perms(perms), SIG, 1e-10,
+                            pairwise=pairwise, device="cpu")
+    c_gpu = _cache_on(c_cpu, "cuda")
+    v = np.random.default_rng(8).normal(size=c_cpu.n)
+    want = knl.matvec_psd_ozaki(knl.ozaki_matvec_state(c_cpu),
+                                torch.as_tensor(v))
+    got = knl.matvec_psd_ozaki(knl.ozaki_matvec_state(c_gpu),
+                               torch.as_tensor(v, device="cuda")).cpu()
+    assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) \
+        <= 1e-15
+
+
+def test_ozaki_apply_on_card_matches_cpu(small):
+    from mlff_tpu_torch.solvers import preconditioners as pc
+
+    rng = np.random.default_rng(0)
+    n, m = 4099, 256
+    U = np.linalg.qr(rng.normal(size=(n, m)))[0]
+    B = U * np.exp(-np.linspace(0, 8, m))[None, :]
+    W2 = np.linalg.cholesky(np.linalg.inv(B.T @ B + 1e-10 * np.eye(m)))
+    v = rng.normal(size=n)
+    out = []
+    for dev in ("cpu", "cuda"):
+        P = pc.ozaki_from_split(pc.WoodburySplitPreconditioner(
+            B=torch.as_tensor(B, device=dev),
+            W2=torch.as_tensor(W2, device=dev), lam=1e-10, info={}))
+        out.append(P(torch.as_tensor(v, device=dev)).cpu())
+    want, got = out
+    assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) \
+        <= 1e-15

@@ -155,14 +155,55 @@ def test_colblock_apply_matches_jax(colblock, apply_impl):
     assert _rel(Pt(torch.as_tensor(v)).numpy(), want) < COLBLOCK_RTOL
 
 
+@pytest.fixture(scope="module")
+def nystrom_system():
+    """The colblock fixture's system (n = 432, 60 random columns): the JAX
+    cache carried to the port."""
+    ds, perms = make_benchmark_dataset("ethanol", n_samples=16, seed=11,
+                                       n_train=16)
+    spec_j = jd.make_spec(9)
+    X, Jc = jd.descriptors_from_R(spec_j, jnp.asarray(ds["R"]))
+    cj = jk.build_cache(X, Jc, jd.incidence_matrix(spec_j),
+                        jnp.asarray(jd.desc_perms(perms), dtype=jnp.int32),
+                        SIG, LAM)
+    ct = convert.kernel_cache_from_numpy(
+        {k: np.asarray(getattr(cj, k)) for k in (
+            "X", "Jc", "S", "P_idx", "Xq", "Xqt", "A_exp", "A_exp1", "sig",
+            "lam")}, device="cpu")
+    idx = np.sort(np.random.default_rng(5).choice(ct.n, 60, replace=False))
+    return spec_j, cj, ct, idx
+
+
 @pytest.mark.parametrize("option", ["apply_impl", "MLFF_BUILD_GEMM"])
-def test_ozaki_engines_raise(option, monkeypatch):
+def test_ozaki_engines_raise(nystrom_system, option, monkeypatch):
+    """The Ozaki engines (the test keeps the name of the slice in which they
+    raised) build in both packages from the same columns: the Ozaki apply
+    (7 digit planes of B), and the df64 apply of a factor whose whiten and
+    Gram ran through the exact-slice build engine.  The applies agree within
+    the column-blocked route's 5e-11 (the two f64 builds agree to ~1e-12;
+    the digits add ~2^-56), the guard does not fire."""
+    spec_j, cj, ct, idx = nystrom_system
     apply_impl = "ozaki" if option == "apply_impl" else "df64"
     if option == "MLFF_BUILD_GEMM":
         monkeypatch.setenv("MLFF_BUILD_GEMM", "ozaki")
-    with pytest.raises(NotImplementedError, match="module item 11"):
-        tpc.nystrom_preconditioner(td.make_spec(9), None, np.arange(4), LAM,
-                                   apply_impl=apply_impl)
+        monkeypatch.setattr(tpc, "_BUILD_GEMM_MODE", None)
+        monkeypatch.setattr(jpc, "_BUILD_GEMM_MODE", None)
+    Pt = tpc.nystrom_preconditioner(td.make_spec(9), ct, idx, LAM,
+                                    apply_impl=apply_impl)
+    Pj = jpc.nystrom_preconditioner(spec_j, cj, idx, LAM,
+                                    apply_impl=apply_impl)
+    if option == "MLFF_BUILD_GEMM":
+        assert Pt.info["build_gemm"] == "ozaki"
+        monkeypatch.setattr(tpc, "_BUILD_GEMM_MODE", None)
+        monkeypatch.setattr(jpc, "_BUILD_GEMM_MODE", None)
+    else:
+        assert isinstance(Pt, tpc.OzakiApplyPreconditioner)
+        assert len(Pt.B_dig) == 7 and Pt.B_dig[0].shape[0] % 256 == 0
+    assert Pt.info["apply_impl"] == apply_impl
+    assert not Pt.info["gram_guard_fired"]
+    v = np.random.default_rng(1).standard_normal(ct.n)
+    want = np.asarray(Pj(jnp.asarray(v)))
+    assert _rel(Pt(torch.as_tensor(v)).numpy(), want) < COLBLOCK_RTOL
 
 
 @pytest.fixture(scope="module", params=["df64", "colblock_df64"])

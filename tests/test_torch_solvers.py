@@ -130,14 +130,24 @@ def test_pcg_stops_before_iterating_when_already_converged():
 @pytest.mark.parametrize("option, item", [
     ("matvec_dtype", "items 10-11"), ("apply_impl_ozaki", "item 11")])
 def test_unported_solver_options_raise(caches, option, item):
-    """What the port does not have yet raises and names its ROADMAP item,
-    also with a strategy that builds no Nystrom preconditioner."""
-    _, _, spec_t, ct, y = caches
+    """The Ozaki options of ROADMAP items 10-11 (the test keeps the name of
+    the slice in which they raised) run through ``solve_iterative`` with a
+    strategy that builds no Nystrom preconditioner: the greedy pivoted
+    Cholesky at 10% of n, 10 iterations at lam = 1e-10, against the JAX
+    package.  Equal pivots and iterations, iterates within 1e-6 (two PCG
+    runs of this system part chaotically after the first few iterations);
+    the Ozaki matvec's residual replacement runs in both."""
+    spec_j, cj, spec_t, ct, y = caches
     task = {"matvec_dtype": {"matvec_dtype": "ozaki"},
             "apply_impl_ozaki": {"apply_impl": "ozaki"}}[option]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP module {item}"):
-        tit.solve_iterative(spec_t, ct, task, y, 1.0, break_percentage=0.1,
-                            str_preconditioner="cholesky")
+    task = dict(task, solver_maxiter=10)
+    kw = dict(break_percentage=0.1, str_preconditioner="cholesky")
+    res_j = jit_.solve_iterative(spec_j, cj, task, y, 1.0, **kw)
+    res_t = tit.solve_iterative(spec_t, ct, task, y, 1.0, **kw)
+    np.testing.assert_array_equal(res_t.info["pivots"], res_j.info["pivots"])
+    assert res_t.num_iters == res_j.num_iters == 10
+    assert (np.abs(res_t.alphas - res_j.alphas).max()
+            <= 1e-6 * np.abs(res_j.alphas).max())
 
 
 def test_energy_constrained_cholesky_solve_matches_jax(caches):
