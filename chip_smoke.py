@@ -127,6 +127,27 @@ Phases, each printing one JSON line of its own numbers:
                  (g) IR-CG on zoo_dense's system: lam = 1e-6 converges
                  within 6 outer steps, lam = 1e-10 stops within 3, not
                  converged
+  sharded        the row-sharded operator (parallel.mesh) on the train
+                 phase's task through Trainer.train(mesh=): (a) a one-rank
+                 NCCL group in this process (the real collectives on CUDA
+                 tensors), iterations within 1 of train's, predictions equal
+                 to the unsharded f64 Predictor's bit for bit; (b) two ranks on
+                 the one card over gloo (583 training points each, every
+                 collective staged through host memory because gloo was
+                 chosen), spawned processes, iterations within 2, then
+                 Predictor(mesh=) on the 60 held-out geometries against the
+                 unsharded f64 Predictor (1e-8), and each rank's rows
+                 against that Predictor run on them alone at the rank's
+                 batch size (1e-13, the witness); (c) (b) with
+                 apply_impl="df64": both df64 kernels on each rank's row
+                 slice, iterations within 2 of train_df64's; (d) the square
+                 layout on the NCCL mesh at train_catcher's size, iterations
+                 within 1 of train_catcher's.  Each part: alphas within
+                 1e-6 of max|alpha| of the unsharded model, the Gram guard
+                 quiet, collectives per CG iteration and, for (a) and (b),
+                 a second, timed run with a synchronize around each
+                 collective: their milliseconds per iteration; the phase's
+                 seconds
 The kernel phase also holds the fused kernel's wide route (D > 129) to its
 plain version at D = 130, 210, 3828 and 68,265 (1e-12, same bits twice)
 and times it at B = 512 at the aspirin, catcher and full-row shapes.
@@ -168,11 +189,13 @@ ATOL_REL, RTOL = 2e-5, 2e-4
 # the df64 passes: (label, n, m), and their tolerance relative to max |ref|
 # (tests/test_df64.py).  "profiled" is the shape of the JAX package's
 # tools/profile_df64_kernels.py; its plain version is timed, not compared.
-# "ecstr" is the factor of the energy-constrained main task (n + N rows).
+# "ecstr" is the factor of the energy-constrained main task (n + N rows),
+# "sharded" one rank's row slice of the main factor in phase sharded (c).
 DF64_SHAPES = (("main", 31482, K_COLUMNS), ("ecstr", 32648, K_COLUMNS),
+               ("sharded", 31482 // 2, K_COLUMNS),
                ("ragged", 1001, 130), ("ragged_slabs", 4099, 1030),
                ("profiled", 75006, 3840))
-DF64_TIMED = ("main", "ecstr", "profiled")
+DF64_TIMED = ("main", "ecstr", "sharded", "profiled")
 DF64_RTOL = 3e-12
 # a fused_predict call keeps the host for tens of microseconds, at small B
 # longer than the card: its timed turns start behind a spin of this length
@@ -272,6 +295,24 @@ PRECISION_ITERS_SLACK, PRECISION_RESID_LIMIT = 2, 1.3e-4
 CEILING_ENV, PRECISION_CEILING_GB = "MLFF_TPU_HBM_CEILING_GB", "0.3"
 PRECISION_157K = ("ethanol", 5833, 2368)      # train_157k's task
 IR_MAX_OUTER = 6                              # tests/test_ir_cg.py
+# sharded: the ranks of the gloo parts, the iteration slack of the one-rank
+# NCCL parts and of the two-rank parts (the JAX test's +-1; two ranks sum
+# the dot products in another order), alphas against the unsharded ones
+# (tests/test_parallel.py), and the spawned ranks' time limit.  Predictions
+# of the mesh against the unsharded f64 Predictor: the JAX test's 1e-10
+# holds on the CPU (tests/test_torch_parallel.py) but not on the card,
+# where each rank predicts a half batch, another cuBLAS product shape
+# summed in another order, and the trained model's terms cancel by ~1e6.
+# The witness shows it: each rank's rows equal the unsharded Predictor run
+# on them alone at the half batch (SHARDED_WITNESS_RTOL; one rank's mesh
+# equals it bit for bit), and the phase prints that Predictor's half batch
+# against its whole batch.  Against the whole batch the limit is the 1e-8
+# of tests/test_torch_cuda.py for two f64 contractions of one model
+SHARDED_WORLD = 2
+SHARDED_SLACK_NCCL, SHARDED_SLACK_GLOO = 1, 2
+SHARDED_ALPHA_RTOL, SHARDED_PRED_RTOL = 1e-6, 1e-8
+SHARDED_WITNESS_RTOL = 1e-13
+SHARDED_TIMEOUT_S = 300
 
 
 def emit(phase: str, **fields) -> None:
@@ -557,12 +598,13 @@ def train_otf(torch, dev, task, ds, held, cached_row, mae_ref) -> int:
     return launches
 
 
-def large_system(torch, dev, phase, molecule, n_train, k, limit) -> int:
+def large_system(torch, dev, phase, molecule, n_train, k, limit) -> tuple:
     """Train a large system to tol 1e-4 with lev_random, then predict its
     60 held-out geometries fast and in f64.  train_157k is above the 3 GB
     cache switch (the OTF matvec) and also times one OTF matvec beside one
     cached matvec at its n; train_catcher takes the square matvec.  Returns
-    the fused kernel's launches in the phase."""
+    the fused kernel's launches in the phase, and the iterations and
+    alphas_F of its model."""
     from mlff_tpu_torch.data.synthetic import make_benchmark_dataset
     from mlff_tpu_torch.models.gdml import Trainer
     from mlff_tpu_torch.models.task import create_task
@@ -637,7 +679,7 @@ def large_system(torch, dev, phase, molecule, n_train, k, limit) -> int:
              "disagrees with the cached one")
     if phase == "train_catcher" and row["matvec_impl"] != "square":
         fail("train_catcher: the square matvec was not selected")
-    return launches
+    return launches, {"iters": iters, "alphas_F": np.asarray(m["alphas_F"])}
 
 
 def nanotube(torch, dev) -> int:
@@ -1540,6 +1582,281 @@ def cli_ecstr(small: dict) -> None:
         fail(f"cli_ecstr: test MAEs part by {rel} between card and CPU")
 
 
+class CgCollectives:
+    """A train callback (once per CG chunk): the collectives launched per
+    iteration, with their milliseconds when
+    ``parallel.mesh.time_collectives`` is on, over the whole chunks after
+    the first (the last chunk also runs masked iterations past
+    convergence, which launch their collectives too)."""
+
+    def __init__(self, pmesh):
+        self.pmesh = pmesh
+        self.snaps = []
+
+    def __call__(self, it, resid, eff):
+        self.snaps.append((it, self.pmesh.STATS["calls"],
+                           self.pmesh.STATS["seconds"]))
+
+    def per_iter(self) -> tuple[float, float]:
+        snaps = self.snaps[:-1] if len(self.snaps) > 2 else self.snaps
+        (i0, c0, s0), (i1, c1, s1) = snaps[0], snaps[-1]
+        d = max(i1 - i0, 1)
+        return (c1 - c0) / d, (s1 - s0) * 1e3 / d
+
+
+def sharded_train(torch, dev, task, mesh, k, timed, extra=None):
+    """One Trainer.train(mesh=) of ``task`` with lev_random at k columns:
+    (model, row of its numbers)."""
+    from mlff_tpu_torch.models.gdml import Trainer
+    from mlff_tpu_torch.parallel import mesh as pmesh
+
+    pmesh.reset_stats()
+    pmesh.time_collectives(timed)
+    cb = CgCollectives(pmesh)
+    tr = Trainer(device=dev)
+    t0 = time.perf_counter()
+    m = tr.train(dict(task, **(extra or {})), n_columns=k,
+                 str_preconditioner="lev_random", callback=cb, mesh=mesh)
+    train_s = time.perf_counter() - t0
+    pmesh.time_collectives(False)
+    info = tr.last_info
+    iters = int(m["solver_iters"])
+    calls_it, ms_it = cb.per_iter()
+    row = dict(iters=iters, converged=bool(m["is_conv"]), train_s=train_s,
+               preconditioner_s=info["total_time_preconditioner"],
+               cg_s=info["total_time_cg"],
+               ms_per_iter=info["total_time_cg"] * 1e3 / max(iters, 1),
+               matvec_impl=info["matvec_impl"],
+               collectives=pmesh.STATS["calls"],
+               collectives_per_iter=calls_it,
+               gram_guard_fired=bool(info["nystrom"]["gram_guard_fired"]))
+    if timed:
+        row.update(collective_s=pmesh.STATS["seconds"],
+                   collective_ms_per_iter=ms_it)
+    return m, row
+
+
+def sharded_pair(torch, dev, task, mesh, k, extra=None):
+    """sharded_train untimed, then timed for the collectives' time: the
+    untimed run's model and row, with the timed run's collective numbers."""
+    m, row = sharded_train(torch, dev, task, mesh, k, False, extra)
+    _, timed = sharded_train(torch, dev, task, mesh, k, True, extra)
+    row.update(iters_timed=timed["iters"], train_s_timed=timed["train_s"],
+               collective_s=timed["collective_s"],
+               collective_ms_per_iter=timed["collective_ms_per_iter"])
+    return m, row
+
+
+def sharded_rank(rank, world, store, task, k, held_R, held_F, out_dir):
+    """One spawned rank of sharded (b) and (c): both ranks on cuda:0 in a
+    gloo group.  Writes its rows and alphas to ``out_dir``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from mlff_tpu_torch import resolve_device
+    from mlff_tpu_torch.models.predict import Predictor
+    from mlff_tpu_torch.ops import df64_gemv as dg
+    from mlff_tpu_torch.ops import fused_predict as fp
+    from mlff_tpu_torch.parallel import distributed as pdist
+    from mlff_tpu_torch.parallel import mesh as pmesh
+
+    logging.getLogger("mlff_tpu_torch").setLevel(logging.WARNING)
+    torch.cuda.set_device(0)
+    dev = resolve_device("cuda")
+    pdist.init_distributed(backend="gloo", init_method=f"file://{store}",
+                           world_size=world, rank=rank,
+                           timeout=datetime.timedelta(seconds=120))
+    mesh = pmesh.make_mesh()
+    out = {}
+    fp.desc_forces_fused.launches = 0
+    dg.df64_bt_v.launches = dg.df64_b_x.launches = 0
+    m, row = sharded_pair(torch, dev, task, mesh, k)
+    E_m, F_m = Predictor(m, device=dev, mesh=mesh, fast=True).predict(held_R)
+    E_0, F_0 = Predictor(m, device=dev).predict(held_R)
+    # the witness: this rank's rows of the mesh's one batch against the
+    # unsharded f64 Predictor run on them alone, at the rank's batch size
+    half = len(held_R) // world
+    rows = slice(rank * half, (rank + 1) * half)
+    E_w, F_w = Predictor(m, device=dev, batch_size=half).predict(held_R[rows])
+    row.update(
+        fused_launches=fp.desc_forces_fused.launches,
+        df64_launches=dg.df64_bt_v.launches + dg.df64_b_x.launches,
+        pred_rel_err_F=float(np.abs(F_m - F_0).max() / np.abs(F_0).max()),
+        pred_rel_err_E=float(np.abs(E_m - E_0).max() / np.abs(E_0).max()),
+        witness_batch=half,
+        witness_same_bits=bool(np.array_equal(F_m[rows], F_w)
+                               and np.array_equal(E_m[rows], E_w)),
+        witness_rel_err_F=float(np.abs(F_m[rows] - F_w).max()
+                                / np.abs(F_w).max()),
+        witness_rel_err_E=float(np.abs(E_m[rows] - E_w).max()
+                                / np.abs(E_w).max()),
+        half_vs_whole_batch_rel_err_F=float(
+            np.abs(F_w - F_0[rows]).max() / np.abs(F_0).max()),
+        half_vs_whole_batch_rel_err_E=float(
+            np.abs(E_w - E_0[rows]).max() / np.abs(E_0).max()),
+        pred_finite=bool(np.all(np.isfinite(F_m))
+                         and np.all(np.isfinite(E_m))),
+        force_mae_held_out=float(np.abs(F_m - held_F).mean()))
+    out["b"] = row
+    np.save(os.path.join(out_dir, f"b{rank}.npy"), m["alphas_F"])
+    dg.df64_bt_v.launches = dg.df64_b_x.launches = 0
+    m_c, row_c = sharded_train(torch, dev, task, mesh, k, False,
+                               {"apply_impl": "df64"})
+    row_c["launches"] = {"df64_bt_v": dg.df64_bt_v.launches,
+                         "df64_b_x": dg.df64_b_x.launches}
+    _, F_c = Predictor(m_c, device=dev, mesh=mesh).predict(held_R)
+    row_c["force_mae_held_out"] = float(np.abs(F_c - held_F).mean())
+    out["c"] = row_c
+    np.save(os.path.join(out_dir, f"c{rank}.npy"), m_c["alphas_F"])
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sharded(torch, dev, task, ds, held, refs: dict) -> int:
+    """The sharded phase (module docstring).  ``refs``: the unsharded runs
+    it is held to ("train", "train_df64", "train_catcher": iterations and
+    alphas_F; "mae": train's held-out force MAE).  Returns the df64 kernels'
+    launches in (c), summed over the ranks, by kernel name."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from mlff_tpu_torch.data.synthetic import make_benchmark_dataset
+    from mlff_tpu_torch.models.predict import Predictor
+    from mlff_tpu_torch.models.task import create_task
+    from mlff_tpu_torch.ops import df64_gemv as dg
+    from mlff_tpu_torch.ops import fused_predict as fp
+    from mlff_tpu_torch.parallel import distributed as pdist
+    from mlff_tpu_torch.parallel import mesh as pmesh
+
+    t_phase = time.perf_counter()
+
+    def check(part, row, alphas, ref, slack):
+        row["iters_unsharded"] = ref["iters"]
+        row["rel_err_alphas_F"] = float(np.abs(alphas - ref["alphas_F"]).max()
+                                        / np.abs(ref["alphas_F"]).max())
+        emit("sharded", part=part, card=card(), **row)
+        if not (row["converged"] and abs(row["iters"] - ref["iters"]) <= slack
+                and row["rel_err_alphas_F"] <= SHARDED_ALPHA_RTOL
+                and not row["gram_guard_fired"]):
+            fail(f"sharded ({part}): {row['iters']} iterations against "
+                 f"{ref['iters']} (+-{slack}), alphas {row['rel_err_alphas_F']}"
+                 f", converged {row['converged']}, gram guard "
+                 f"{row['gram_guard_fired']}")
+
+    # (a), (d): a one-rank NCCL group in this process
+    with tempfile.TemporaryDirectory() as tmp:
+        pdist.init_distributed(backend="nccl",
+                               init_method=f"file://{tmp}/store",
+                               world_size=1, rank=0)
+        try:
+            mesh = pmesh.make_mesh()
+            fp.desc_forces_fused.launches = 0
+            dg.df64_bt_v.launches = dg.df64_b_x.launches = 0
+            m, row = sharded_pair(torch, dev, task, mesh, K_COLUMNS)
+            E_h, F_h = Predictor(m, device=dev, mesh=mesh).predict(
+                ds["R"][held])
+            E_u, F_u = Predictor(m, device=dev).predict(ds["R"][held])
+            row.update(backend="nccl", world=1, n=m["alphas_F"].size,
+                       k=K_COLUMNS,
+                       pred_same_bits_unsharded=bool(
+                           np.array_equal(F_h, F_u)
+                           and np.array_equal(E_h, E_u)),
+                       force_mae_held_out=float(np.abs(
+                           F_h - ds["F"][held]).mean()),
+                       force_mae_held_out_unsharded=refs["mae"],
+                       launches={"fused_predict": fp.desc_forces_fused.launches,
+                                 "df64": dg.df64_bt_v.launches
+                                 + dg.df64_b_x.launches})
+            check("a", row, m["alphas_F"], refs["train"], SHARDED_SLACK_NCCL)
+            if not row["pred_same_bits_unsharded"]:
+                fail("sharded (a): the one-rank mesh's predictions differ "
+                     "from the unsharded f64 Predictor's")
+            if sum(row["launches"].values()):
+                fail("sharded (a) launched a kernel off its path")
+            # (d): the square layout at train_catcher's size
+            molecule, n_train, k, _ = LARGE[2][1:]
+            ds_c, perms_c = make_benchmark_dataset(
+                molecule, n_samples=n_train + N_HELD_LARGE, seed=11,
+                n_train=n_train)
+            task_c = create_task(ds_c, n_train, ds_c,
+                                 n_valid=min(50, N_HELD_LARGE), sig=SIG,
+                                 solver="cg", perms=perms_c)
+            # untimed only: (a) times the collectives
+            m_d, row_d = sharded_train(torch, dev, task_c, mesh, k, False)
+            row_d.update(backend="nccl", world=1, molecule=molecule,
+                         N_train=n_train, n=m_d["alphas_F"].size, k=k)
+            check("d", row_d, m_d["alphas_F"], refs["train_catcher"],
+                  SHARDED_SLACK_NCCL)
+            if row_d["matvec_impl"] != "square":
+                fail("sharded (d): the square matvec was not selected")
+        finally:
+            dist.destroy_process_group()
+
+    # (b), (c): two ranks on the one card over gloo, spawned
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            sharded_rank, args=(SHARDED_WORLD, os.path.join(tmp, "store"),
+                                task, K_COLUMNS, ds["R"][held],
+                                ds["F"][held], tmp),
+            nprocs=SHARDED_WORLD, start_method="spawn", join=False)
+        deadline = time.perf_counter() + SHARDED_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() > deadline:
+                    fail(f"sharded (b, c): the ranks ran past "
+                         f"{SHARDED_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+        ranks = []
+        for r in range(SHARDED_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        alphas = {part: [np.load(os.path.join(tmp, f"{part}{r}.npy"))
+                         for r in range(SHARDED_WORLD)] for part in "bc"}
+    for part in "bc":
+        if any(not np.array_equal(a, alphas[part][0]) for a in alphas[part]):
+            fail(f"sharded ({part}): the ranks' models differ")
+    row_b = dict(ranks[0]["b"], backend="gloo", world=SHARDED_WORLD,
+                 staged_through_host=True,
+                 n_train_per_rank=N_TRAIN // SHARDED_WORLD,
+                 force_mae_held_out_unsharded=refs["mae"])
+    for key in ("witness_rel_err_F", "witness_rel_err_E",
+                "half_vs_whole_batch_rel_err_F",
+                "half_vs_whole_batch_rel_err_E"):
+        row_b[key] = max(r["b"][key] for r in ranks)
+    row_b["witness_same_bits"] = all(r["b"]["witness_same_bits"]
+                                     for r in ranks)
+    check("b", row_b, alphas["b"][0], refs["train"], SHARDED_SLACK_GLOO)
+    if not (row_b["witness_rel_err_F"] <= SHARDED_WITNESS_RTOL
+            and row_b["witness_rel_err_E"] <= SHARDED_WITNESS_RTOL):
+        fail("sharded (b): a rank's mesh predictions differ from the "
+             "unsharded f64 Predictor on its rows at its batch size")
+    if not (row_b["pred_finite"]
+            and row_b["pred_rel_err_F"] <= SHARDED_PRED_RTOL
+            and row_b["pred_rel_err_E"] <= SHARDED_PRED_RTOL):
+        fail("sharded (b): Predictor(mesh=) disagrees with the unsharded "
+             "f64 Predictor")
+    if row_b["fused_launches"] or row_b["df64_launches"]:
+        fail("sharded (b) launched a kernel off its path")
+    launches = {name: sum(r["c"]["launches"][name] for r in ranks)
+                for name in ("df64_bt_v", "df64_b_x")}
+    row_c = dict(ranks[0]["c"], backend="gloo", world=SHARDED_WORLD,
+                 launches_per_rank=[r["c"]["launches"] for r in ranks],
+                 force_mae_held_out_unsharded=refs["mae"])
+    check("c", row_c, alphas["c"][0], refs["train_df64"], SHARDED_SLACK_GLOO)
+    if min(min(r["c"]["launches"].values()) for r in ranks) == 0:
+        fail(f"sharded (c): a rank did not launch both df64 kernels: "
+             f"{row_c['launches_per_rank']}")
+    emit("sharded", part="summary", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def card() -> str:
     """The card's name and power limit as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -1973,7 +2290,7 @@ def main() -> None:
 
     # -- train_df64, train_colblock_df64: the df64 apply path ---------------
     mae_xla = float(np.abs(F_h64 - ds["F"][held]).mean())
-    df64_launches = {}
+    df64_launches, df64_refs = {}, {}
     for phase, extra, components in (
             ("train_df64", {}, 3),
             ("train_colblock_df64", {"nystrom_block_cols": COLBLOCK_COLS}, 2)):
@@ -2013,15 +2330,18 @@ def main() -> None:
             fail(f"{phase}: held-out force MAE {mae} against {mae_xla} of the "
                  "f64 model")
         df64_launches[phase] = launches_df
+        df64_refs[phase] = {"iters": iters,
+                            "alphas_F": np.asarray(m_df["alphas_F"])}
 
     # -- zoo_full, zoo_dense: the rest of the preconditioner zoo -------------
     zoo_launches = zoo_full(torch, tr, task, ds, held, mae_xla, (fp, dg))
     zoo_dense(torch, dev)
 
     # -- train_157k, train_aspirin, train_catcher, nanotube: large systems ---
+    large_refs = {}
     for phase, molecule, n_train, k, limit in LARGE:
-        launches_new[phase] = large_system(torch, dev, phase, molecule,
-                                           n_train, k, limit)
+        launches_new[phase], large_refs[phase] = large_system(
+            torch, dev, phase, molecule, n_train, k, limit)
     launches_new["nanotube"] = nanotube(torch, dev)
 
     # -- cli_reference, cli_all, rule_of_thumb, benchmark_models: the layers
@@ -2042,6 +2362,13 @@ def main() -> None:
 
     # -- precision: the arithmetic options of the solve ----------------------
     precision(torch, dev, tr, task, ds, held, dict(train_ref, mae=mae_xla))
+
+    # -- sharded: the row-sharded operator on torch.distributed --------------
+    sharded_launches = sharded(torch, dev, task, ds, held, {
+        "train": {"iters": int(model["solver_iters"]),
+                  "alphas_F": np.asarray(model["alphas_F"])},
+        "train_df64": df64_refs["train_df64"],
+        "train_catcher": large_refs["train_catcher"], "mae": mae_xla})
 
     full = fused_rows["full"]
     kernels = [{
@@ -2081,9 +2408,11 @@ def main() -> None:
             "launches_zoo_full": zoo_launches[name],
             "launches_train_ecstr_df64": ecstr["df64"][name],
             "launches_train_ecstr_colblock": ecstr["colblock"][name],
-            "ecstr_shape": {k: df64_rows[(name, "ecstr")][k] for k in (
+            "launches_sharded_df64": sharded_launches[name],
+            **{f"{label}_shape": {k: df64_rows[(name, label)][k] for k in (
                 "n", "m", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                "library_ms", "share_of_bound")},
+                "library_ms", "share_of_bound")}
+               for label in ("ecstr", "sharded")},
             "max_abs_err": main_row["max_abs_err"],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

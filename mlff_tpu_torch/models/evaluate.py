@@ -4,9 +4,9 @@ force magnitudes, and normalized cosine errors.
 PyTorch port of ``mlff_tpu.models.evaluate`` (reference: sgdml/cli.py:855-866
 `_online_err`, cli.py:1214-1260 the test/validate metric loop, cli.py:1443+
 sigma model selection).  Predictions come from the f64 ``Predictor`` with
-``fast=False``, as in the JAX package; the metrics are host NumPy.  The
-row-sharded ``mesh`` argument of the JAX functions is ROADMAP item 13b and
-not here.
+``fast=False``, as in the JAX package; the metrics are host NumPy.  With
+a ``mesh`` the query batches are split over its ranks (``Predictor(mesh=)``)
+and every rank computes the same metrics.
 """
 
 from __future__ import annotations
@@ -57,15 +57,17 @@ def evaluate(
     batch_size: int = 250,
     seed: int = 0,
     device=None,
+    mesh=None,
 ) -> EvalResult:
     """Compute prediction errors of ``model`` on ``dataset``, predicting on
-    ``device`` (cuda by default).
+    ``device`` (cuda by default), the batches split over ``mesh``'s ranks
+    when one is given.
 
     ``idxs`` selects the evaluation subset; if absent, a stratified sample of
     ``n_points`` (all points for -1) drawn away from the model's train/valid
     indices (reference cli.py test-set sampling semantics).
     """
-    pred = Predictor(model, device=device)
+    pred = Predictor(model, device=device, mesh=mesh)
     use_E = bool(np.asarray(model.get("use_E", False))) and "E" in dataset
 
     if idxs is None:
@@ -146,11 +148,11 @@ def evaluate(
 
 
 def validate(model: dict, valid_dataset: dict, batch_size: int = 250,
-             device=None) -> EvalResult:
+             device=None, mesh=None) -> EvalResult:
     """Errors on the task's validation split (reference cli.validate)."""
     return evaluate(
         model, valid_dataset, idxs=np.asarray(model["idxs_valid"]),
-        batch_size=batch_size, device=device,
+        batch_size=batch_size, device=device, mesh=mesh,
     )
 
 

@@ -132,8 +132,16 @@ class Trainer:
         save_progr_callback=None,
         allow_restarts: bool = False,
         svd_cache: dict | None = None,
+        mesh=None,
     ) -> dict:
-        """Train a model for the task (reference train.py:707-970)."""
+        """Train a model for the task (reference train.py:707-970).
+
+        ``mesh``: optional ``torch.distributed`` DeviceMesh for the 'cg'
+        solver: the kernel operator, the preconditioner factors and the CG
+        state run row-sharded over it (``solve_iterative``), and every rank
+        returns the same model.  The checkpoint callback runs on every rank
+        with the whole iterate.  'analytic' and 'cg_cholesky' take no mesh
+        in the JAX package either: each rank runs them whole."""
         task = dict(task)
         solver = str(task["solver_name"])
         if solver not in ("analytic", "cg", "cg_cholesky"):
@@ -183,6 +191,9 @@ class Trainer:
             cache_build_s = time.perf_counter() - t_cache
             log.info("kernel cache build: %.2fs", cache_build_s)
 
+        if mesh is not None and solver != "cg":
+            log.info("solver %r is not sharded: each rank of the mesh runs "
+                     "it whole", solver)
         if solver == "cg":
             res = solve_iterative(
                 spec, cache, task, y, y_std,
@@ -195,6 +206,7 @@ class Trainer:
                                                     E_train_mean),
                 allow_restarts=allow_restarts,
                 svd_cache=svd_cache,
+                mesh=mesh,
             )
             alphas_psd = res.alphas
             num_iters, resid = res.num_iters, res.resid

@@ -12,6 +12,15 @@ coefficients predicts through the f64 contraction whatever ``fast`` says,
 as in the JAX package.  Both paths are f64: the kernel keeps the
 (B, M) exponential weights out of device memory, not digits.
 
+``mesh``: a ``torch.distributed`` DeviceMesh splits each query batch over
+its ranks (the reference's multi-GPU DataParallel split, predict.py:336-341),
+each rank contracting its geometries against the whole training side, and
+gathers the results onto every rank.  The batch size is rounded up to a
+multiple of the mesh size and a short batch is padded with its last
+geometry to a multiple of the mesh size (the JAX package pads it to the
+whole batch, its compiled shape).  ``fast`` is off on a mesh, the JAX
+package's routing rule.
+
 Sign conventions follow the stored-model (reference) convention:
 ``alphas_F`` as the reference stores them, energies carrying the trained -E
 flip fixed up by the integration constant ``c``.
@@ -33,10 +42,10 @@ log = get_logger(__name__)
 
 class Predictor:
     """Evaluate a trained (s)GDML model on query geometries on ``device``
-    (cuda by default)."""
+    (cuda by default), split over ``mesh`` when one is given."""
 
     def __init__(self, model: dict, batch_size: int | None = None,
-                 fast: bool = False, device=None):
+                 fast: bool = False, device=None, mesh=None):
         self.device = dev = resolve_device(device)
         self.model = model
         n_atoms = int(np.asarray(model["z"]).shape[0])
@@ -84,16 +93,26 @@ class Predictor:
             # keep the (B, M) distance/exponential intermediates ~<= 1 GiB
             M = self.Xqt.shape[0]
             batch_size = max(1, min(512, int(2**27 / max(M, 1))))
+        self.shard = None
+        if mesh is not None:
+            from ..parallel.mesh import row_shard
+
+            self.shard = row_shard(mesh)
+            w = self.shard.world
+            batch_size = max(w, -(-batch_size // w) * w)
         self.batch_size = batch_size
 
         # the JAX package's routing rule (models/predict.py:106-109): the
         # fused contraction carries no energy-constraint terms, so a model
-        # with them predicts through the f64 contraction
-        self.fast = bool(fast) and self.vE_lin is None
-        if fast and not self.fast:
+        # with them predicts through the f64 contraction, as does a mesh
+        self.fast = bool(fast) and self.vE_lin is None and mesh is None
+        if fast and self.vE_lin is not None:
             log.info("Predictor(fast=True): the model carries energy "
                      "constraints, which the fused kernel does not; "
                      "predicting through the f64 contraction")
+        elif fast and mesh is not None:
+            log.info("Predictor(fast=True, mesh=...): a mesh predicts "
+                     "through the f64 contraction, as in the JAX package")
 
     @classmethod
     def from_alphas(cls, task_like: dict, R_desc, R_d_desc, alphas_F,
@@ -159,9 +178,23 @@ class Predictor:
             -1, self.spec.n_atoms, 3)
         run = self._predict_batch_fast if self.fast else self._predict_batch_impl
         Es, Fs = [], []
-        for start in range(0, R.shape[0], self.batch_size):
-            batch = R[start:start + self.batch_size].to(self.device)
-            E, F = run(batch)
+        B = self.batch_size
+        for start in range(0, R.shape[0], B):
+            batch = R[start:start + B]
+            if self.shard is None:
+                E, F = run(batch.to(self.device))
+            else:
+                # pad to an even split with the last geometry (to a
+                # multiple of the ranks, not to B: eager torch has no
+                # compiled batch shape to keep); each rank predicts its
+                # slice, and every rank gathers the batch
+                n_real = batch.shape[0]
+                batch = torch.cat([batch, batch[-1:].expand(
+                    -n_real % self.shard.world, -1, -1)])
+                E, F = run(batch[self.shard.rows(batch.shape[0])].to(
+                    self.device))
+                E = self.shard.gather(E)[:n_real]
+                F = self.shard.gather(F)[:n_real]
             Es.append(E.cpu().numpy())
             Fs.append(F.cpu().numpy())
         if not Es:

@@ -85,10 +85,28 @@ class KernelCache:
     Usq: torch.Tensor | None = None   # (N, N, A, 3)  U[j, n, b, x]
     Zsq: torch.Tensor | None = None   # (N, N, A, 3)  Z[j, n, a, y]
     C1sq: torch.Tensor | None = None  # (N, N, A, 3, 3) C1[j, n, b, x, y]
+    # parallel.mesh.RowShard of a row-sharded cache (parallel.mesh.
+    # shard_cache): the fields with a training-point row axis then hold this
+    # rank's rows, and n_train / n count them
+    shard: object = None
 
     @property
     def n_train(self) -> int:
+        """Training points in this cache's rows (all of them unsharded)."""
         return self.X.shape[0]
+
+    @property
+    def n_train_global(self) -> int:
+        return self.n_train * (1 if self.shard is None else self.shard.world)
+
+    @property
+    def n_global(self) -> int:
+        return self.S.shape[1] * 3 * self.n_train_global
+
+    @property
+    def row0(self) -> int:
+        """Global index of this cache's first training point."""
+        return 0 if self.shard is None else self.shard.rank * self.n_train
 
     @property
     def n_perms(self) -> int:
@@ -102,6 +120,23 @@ class KernelCache:
     @property
     def device(self) -> torch.device:
         return self.X.device
+
+
+def vector_layout(cache, use_E_cstr: bool = False):
+    """The ``parallel.mesh.VecLayout`` of the solve's vectors on a
+    row-sharded cache, None when it is not sharded: one segment (n,), or
+    (n, N) with energy constraints (each rank holds its points' force and
+    energy entries)."""
+    if cache.shard is None:
+        return None
+    return cache.shard.layout((cache.n_global, cache.n_train_global)
+                              if use_E_cstr else (cache.n_global,))
+
+
+def _all_points(cache, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Per-point rows of this cache -> rows of every training point: the
+    sharded matvec's one all-gather (the tensor itself unsharded)."""
+    return t if cache.shard is None else cache.shard.gather(t, dim=dim)
 
 
 def permuted_descriptors(X: torch.Tensor, P_idx: torch.Tensor) -> torch.Tensor:
@@ -263,6 +298,7 @@ def _matvec_ref_otf(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
     N = cache.n_train
     A = cache.S.shape[1]
     w = d_desc_dot_vec(cache.Jc, cache.S, v.reshape(N, A, 3))   # (N, D)
+    w = _all_points(cache, w)
     # an f32 cache (downcast_cache): distances, weights and the products in
     # f32 (the JAX package promotes this variant's products to f64 against
     # its f64 cotangents; torch does not promote in a product)
@@ -300,6 +336,7 @@ def matvec_ref(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
     N = cache.n_train
     A = cache.S.shape[1]
     w = d_desc_dot_vec(cache.Jc, cache.S, v.reshape(N, A, 3))   # (N, D)
+    w = _all_points(cache, w)
     wt = perm_expand_w(_at_cache_dtype(cache, w), cache.P_idx)  # (M, D)
     F_desc, _ = _desc_forces_x(cache.Xqt, cache.sig, cache.Xq, cache.A_exp,
                                cache.A_exp1, wt, energies=False)
@@ -329,6 +366,7 @@ def matmat_psd(cache: KernelCache, V: torch.Tensor) -> torch.Tensor:
         Vb = V[:, start:start + block].T                        # (b, n)
         b = Vb.shape[0]
         w = d_desc_dot_vec(cache.Jc, cache.S, Vb.reshape(b, N, A, 3))
+        w = _all_points(cache, w, dim=1)
         wt = w[:, :, cache.P_idx].reshape(b, M, D)              # (b, M, D)
         F_desc, _ = _desc_forces_x(cache.Xqt, cache.sig, cache.Xq,
                                    cache.A_exp, cache.A_exp1, wt,
@@ -446,8 +484,12 @@ def _mixed_operands(cache: KernelCache, v: torch.Tensor):
     N = cache.n_train
     A = cache.S.shape[1]
     w64 = d_desc_dot_vec(cache.Jc, cache.S, v.reshape(N, A, 3))  # (N, D)
-    wt64 = perm_expand_w(w64, cache.P_idx)                      # (M, D)
-    c = torch.mean(cache.Xq, dim=0)                             # (D,)
+    wt64 = perm_expand_w(_all_points(cache, w64), cache.P_idx)  # (M, D)
+    if cache.shard is None:
+        c = torch.mean(cache.Xq, dim=0)                         # (D,)
+    else:
+        c = cache.shard.all_reduce(torch.sum(cache.Xq, dim=0)) \
+            / cache.n_train_global
     Xtc = cache.Xqt - c                                         # (M, D)
     ct_c = torch.sum(Xtc * wt64, dim=1)                         # (M,)
     wh, wl = split_f64(wt64)
@@ -556,7 +598,7 @@ def _ozaki_cotangents(cache: KernelCache, v: torch.Tensor):
     N = cache.n_train
     A = cache.S.shape[1]
     w = d_desc_dot_vec(cache.Jc, cache.S, v.reshape(N, A, 3))  # (N, D)
-    wt = perm_expand_w(w, cache.P_idx)                         # (M, D)
+    wt = perm_expand_w(_all_points(cache, w), cache.P_idx)     # (M, D)
     return wt, torch.sum(cache.Xqt * wt, dim=1)                # (M,)
 
 
@@ -666,6 +708,9 @@ class SquareCache:
     A_exp1: torch.Tensor
     sig: float
     lam: float
+    # parallel.mesh.RowShard of a row-sharded cache (shard_square_cache):
+    # every field with a leading N or M axis holds this rank's rows
+    shard: object = None
 
     @property
     def device(self) -> torch.device:
@@ -720,8 +765,15 @@ def matvec_ref_square(sq: SquareCache, v: torch.Tensor) -> torch.Tensor:
     # wt[j, p, i, l] = Gst[j, p, i, l] . (vt[j, p, l] - vt[j, p, i])
     dvt = vt[:, :, None, :, :] - vt[:, :, :, None, :]
     wt = torch.sum(sq.Gst.reshape(N, P, A, A, 3) * dvt, dim=-1)
-    F_desc, _ = _desc_forces_x(sq.Xst, sq.sig, sq.Xs, sq.A_exp, sq.A_exp1,
-                               wt.reshape(N * P, A * A), energies=False)
+    wt = wt.reshape(N * P, A * A)
+    Xst = sq.Xst
+    if sq.shard is not None:
+        # one all-gather per matvec: the row-local wt and this rank's rows
+        # of the (sharded) training side, which G @ Xst reads whole
+        both = sq.shard.gather(torch.stack([wt, Xst], dim=1))
+        wt, Xst = both[:, 0], both[:, 1]
+    F_desc, _ = _desc_forces_x(Xst, sq.sig, sq.Xs, sq.A_exp, sq.A_exp1, wt,
+                               energies=False)
     Fsq = F_desc.reshape(N, A, A)
     return (2.0 * torch.sum(Fsq[..., None] * sq.Gs, dim=1)).reshape(-1)
 
@@ -740,6 +792,17 @@ def _inflate_full(Jc: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
     """(..., D, 3) compressed -> (..., D, 3A) full Jacobians."""
     full = S[:, :, None] * Jc[..., :, None, :]      # (..., D, A, 3)
     return full.reshape(*Jc.shape[:-1], -1)
+
+
+def _col_side(cache: KernelCache, col_cache: KernelCache | None = None):
+    """The column side of an assembly: the cache itself, or on a row-sharded
+    cache its all-gathered descriptors and Jacobians
+    (``parallel.mesh.column_side``), indexed by global point.  The rows of
+    the result stay this cache's rows."""
+    if col_cache is not None or cache.shard is None:
+        return cache if col_cache is None else col_cache
+    from ..parallel.mesh import column_side
+    return column_side(cache)
 
 
 def _group_columns(points: np.ndarray, partials: np.ndarray, g: int):
@@ -788,16 +851,19 @@ def _assemble_columns_grouped(
     grp_t: torch.Tensor,     # (C, g) partial indices, -1 pads
     tile: int,
     flat_valid: torch.Tensor,  # (k,) column slots to keep
+    col_cache: KernelCache | None = None,
 ) -> torch.Tensor:
     """Column-exact assembly: computes ONLY the requested partials, with the
     permutation axis collapsed before the row-side Jacobian is applied —
     O(B C D (3 g P + g 3A)) per row tile of B training points.  Returns the
-    (n, k) PSD columns."""
+    (n, k) PSD columns (this cache's rows; the column points are read from
+    ``col_cache``, see ``_col_side``)."""
     sig = cache.sig
     N = cache.n_train
     T = spec_dim_i
-    jcol = _columns_jcol(cache, grp_pt, grp_t)            # (C, g, P, D)
-    X_g = cache.X[grp_pt][:, cache.P_idx]                 # (C, P, D)
+    cc = _col_side(cache, col_cache)
+    jcol = _columns_jcol(cc, grp_pt, grp_t)               # (C, g, P, D)
+    X_g = cc.X[grp_pt][:, cache.P_idx]                    # (C, P, D)
     out = torch.empty((N * T, flat_valid.shape[0]), dtype=cache.X.dtype,
                       device=cache.device)
     for start in range(0, N, tile):
@@ -836,6 +902,10 @@ def assemble_columns(
         column-exact assembly;
       * otherwise every touched point's whole (n, 3A) block, ``chunk``
         points at a time, and the requested partials taken from them.
+
+    On a row-sharded cache each rank forms its own rows of the columns; the
+    column points' data is all-gathered once (``_col_side``) and the route
+    is chosen on the global sizes, so every rank takes the unsharded one.
     """
     col_idxs = np.asarray(col_idxs)
     if not np.array_equal(col_idxs, np.sort(col_idxs)):
@@ -846,14 +916,19 @@ def assemble_columns(
     points = col_idxs // T
     uniq = np.unique(points)
     dev = cache.device
+    cc = _col_side(cache)
     if _is_large_D(spec, cache):
         if cache.Xsq is not None and cache.n_perms == 1:
-            return assemble_columns_square(spec, cache, col_idxs)
+            return assemble_columns_square(spec, cache, col_idxs,
+                                           col_cache=cc)
         if len(col_idxs) >= 4 * len(uniq):
-            return assemble_columns_compressed_grouped(spec, cache, col_idxs)
-        return assemble_columns_compressed(spec, cache, col_idxs)
+            return assemble_columns_compressed_grouped(spec, cache, col_idxs,
+                                                       col_cache=cc)
+        return assemble_columns_compressed(spec, cache, col_idxs,
+                                           col_cache=cc)
 
-    if len(uniq) > cache.n_train // 3 or len(uniq) * cache.n * T * 8 > int(5e8):
+    if (len(uniq) > cache.n_train_global // 3
+            or len(uniq) * cache.n_global * T * 8 > int(5e8)):
         g = int(min(8, max(1, round(len(col_idxs) / len(uniq)))))
         grp_pt, grp_t, flat_valid = _group_columns(points, col_idxs % T, g)
         # row tile sized so the (tile, C, g, P, D) intermediates stay
@@ -863,12 +938,12 @@ def assemble_columns(
         return _assemble_columns_grouped(
             T, cache, torch.as_tensor(grp_pt, device=dev),
             torch.as_tensor(grp_t, device=dev), tile,
-            torch.as_tensor(flat_valid, device=dev))
+            torch.as_tensor(flat_valid, device=dev), col_cache=cc)
 
     blocks = torch.cat([
         _point_blocks_chunk(T, cache,
                             torch.as_tensor(uniq[start:start + chunk],
-                                            device=dev))
+                                            device=dev), cc)
         for start in range(0, len(uniq), chunk)])          # (n_pts, n, T)
     pt_pos = torch.as_tensor(np.searchsorted(uniq, points), device=dev)
     partial = torch.as_tensor(col_idxs % T, device=dev)
@@ -876,10 +951,12 @@ def assemble_columns(
 
 
 def _point_blocks_chunk(spec_dim_i: int, cache: KernelCache,
-                        pts: torch.Tensor) -> torch.Tensor:
+                        pts: torch.Tensor,
+                        col_cache: KernelCache | None = None) -> torch.Tensor:
     """All-row kernel blocks of a chunk of training points:
     (len(pts), n, 3A)."""
-    return torch.stack([_point_block_cols(spec_dim_i, cache, j[None])
+    return torch.stack([_point_block_cols(spec_dim_i, cache, j[None],
+                                          col_cache)
                         for j in pts])
 
 
@@ -889,17 +966,19 @@ def _point_blocks_chunk(spec_dim_i: int, cache: KernelCache,
 
 
 def _columns_compressed_chunk(cache: KernelCache, pts: torch.Tensor,
-                              atoms: torch.Tensor, xyzs: torch.Tensor
+                              atoms: torch.Tensor, xyzs: torch.Tensor,
+                              col_cache: KernelCache | None = None
                               ) -> torch.Tensor:
     """PSD kernel columns (C, n), no ridge, for partial (atoms[c], xyzs[c])
     of point pts[c], all (C,) index tensors, straight from the compressed
     form: the permuted Jacobian column is Jc[j, P[p, q], x] * S[P[p, q], b],
     and nothing larger than (C, N, P, D) forms (a (D, 3A) inflated Jacobian
     costs ~0.6 GB per point at D = 68,265)."""
+    cc = _col_side(cache, col_cache)
     Pj = cache.P_idx                                         # (P, D)
     ix = (pts[:, None, None], Pj[None], xyzs[:, None, None])
-    jcol = cache.Jc[ix] * cache.S[Pj[None], atoms[:, None, None]]  # (C, P, D)
-    Xt_j = cache.X[pts[:, None, None], Pj[None]]             # (C, P, D)
+    jcol = cc.Jc[ix] * cache.S[Pj[None], atoms[:, None, None]]  # (C, P, D)
+    Xt_j = cc.X[pts[:, None, None], Pj[None]]                # (C, P, D)
     delta = cache.X[None, :, None, :] - Xt_j[:, None]        # (C, N, P, D)
     base, c_iso = _matern_weights(delta, cache.sig)          # (C, N, P)
     u = torch.einsum("cnpd,cpd->cnp", delta, jcol)
@@ -913,10 +992,12 @@ def assemble_columns_compressed(
     cache: KernelCache,
     col_idxs: np.ndarray,
     chunk: int | None = None,
+    col_cache: KernelCache | None = None,
 ) -> torch.Tensor:
     """Inflation-free PSD kernel columns K[:, col_idxs] (n, k) for large-D
     molecules, ``chunk`` columns per batched call (by default as many as
     keep the (N, P, D) per-column intermediates under ~1 GB)."""
+    cc = _col_side(cache, col_cache)
     col_idxs = np.asarray(col_idxs)
     if chunk is None:
         per_col = cache.n_train * max(cache.n_perms, 1) * spec.dim * 8
@@ -930,7 +1011,7 @@ def assemble_columns_compressed(
     for start in range(0, len(col_idxs), chunk):
         sl = slice(start, start + chunk)
         out[:, sl] = _columns_compressed_chunk(
-            cache, pts[sl], partial[sl] // 3, partial[sl] % 3).T
+            cache, pts[sl], partial[sl] // 3, partial[sl] % 3, cc).T
     return out
 
 
@@ -940,6 +1021,7 @@ def _columns_compressed_point_group(
     j: int,
     ts: torch.Tensor,     # (g,) partial indices of point j, -1 pads
     g_chunk: int,
+    col_cache: KernelCache | None = None,
 ) -> torch.Tensor:
     """All requested kernel columns of ONE training point, batched: (n, g).
     The (N, P, D) geometry of the point is shared by its columns, and each
@@ -947,9 +1029,10 @@ def _columns_compressed_point_group(
     product.  No (D, 3A) inflation anywhere."""
     N = cache.n_train
     g = ts.shape[0]
+    cc = _col_side(cache, col_cache)
     jt = torch.as_tensor([j], device=cache.device)
-    jcol = _columns_jcol(cache, jt, ts[None])[0]             # (g, P, D)
-    Xt_j = cache.X[j][cache.P_idx]                           # (P, D)
+    jcol = _columns_jcol(cc, jt, ts[None])[0]                # (g, P, D)
+    Xt_j = cc.X[j][cache.P_idx]                              # (P, D)
     delta = cache.X[:, None, :] - Xt_j[None]                 # (N, P, D)
     base, c_iso = _matern_weights(delta, cache.sig)          # (N, P)
     bdelta = base[..., None] * delta                         # (N, P, D)
@@ -971,12 +1054,14 @@ def assemble_columns_compressed_grouped(
     cache: KernelCache,
     col_idxs: np.ndarray,
     g_chunk: int = 8,
+    col_cache: KernelCache | None = None,
 ) -> torch.Tensor:
     """Inflation-free kernel columns for DENSE selections on large-D
     molecules: one ``_columns_compressed_point_group`` call per owning
     point, its partials padded to a multiple of ``4 * g_chunk``.  col_idxs
     sorted."""
     col_idxs = np.asarray(col_idxs)
+    cc = _col_side(cache, col_cache)
     T = spec.dim_i
     points = col_idxs // T
     partials = col_idxs % T
@@ -990,7 +1075,7 @@ def assemble_columns_compressed_grouped(
         ts_pad[:len(ts)] = ts
         blk = _columns_compressed_point_group(
             T, cache, int(j), torch.as_tensor(ts_pad, device=cache.device),
-            g_chunk)
+            g_chunk, cc)
         out[:, done:done + len(ts)] = blk[:, :len(ts)]
         done += len(ts)
     return out
@@ -1007,6 +1092,7 @@ def _square_point_columns(
     bs: torch.Tensor,     # (g,) atom of each requested column (pad: 0)
     xs: torch.Tensor,     # (g,) cartesian component of each column (pad: 0)
     g_chunk: int,
+    col_cache: KernelCache | None = None,
 ) -> torch.Tensor:
     """Requested kernel columns of ONE training point in the square layout:
     (n, g), with no (N, P, D) geometry and no incidence products.
@@ -1022,16 +1108,18 @@ def _square_point_columns(
                      - 5 (A_exp[n, j] / sig^2) U[n, b, x] Z[n, a, y]
     """
     Xs, Gs = cache.Xsq, cache.Gsq
+    cc = _col_side(cache, col_cache)
     N, A = Xs.shape[0], Xs.shape[1]
     a1j = cache.A_exp1[:, j]                                 # (N,)
     w5 = 5.0 * cache.A_exp[:, j] / cache.sig**2              # (N,) 5 base
-    Gsj = Gs[j]                                              # (A, A, 3)
+    Gsj = cc.Gsq[j]                                          # (A, A, 3)
     if cache.Usq is not None:
+        # [column point j, this cache's row points]
         U, Z, C1 = cache.Usq[j], cache.Zsq[j], cache.C1sq[j]
     else:
         # Xsq carries the matvec's q = sqrt(5)/sig; the assembly contracts
         # unscaled descriptor differences, so q comes off here
-        delta = (Xs - Xs[j][None]) * (cache.sig / SQRT5)     # (N, A, A)
+        delta = (Xs - cc.Xsq[j][None]) * (cache.sig / SQRT5)  # (N, A, A)
         U = -2.0 * torch.sum(delta[..., None] * Gsj[None], dim=2)  # (N, A, 3)
         Z = 2.0 * torch.sum(delta[..., None] * Gs, dim=1)          # (N, A, 3)
         C1 = 2.0 * torch.einsum("ibx,niby->nbxy", Gsj, Gs)         # (N, A, 3, 3)
@@ -1055,11 +1143,13 @@ def _square_point_columns(
 
 
 def _square_points_batched(cache: KernelCache, js: np.ndarray,
-                           ts: torch.Tensor, g_chunk: int) -> torch.Tensor:
+                           ts: torch.Tensor, g_chunk: int,
+                           col_cache: KernelCache | None = None
+                           ) -> torch.Tensor:
     """All requested columns of a batch of points: (n_pts, n, g_pad) for the
     points ``js`` and their partial indices ``ts`` (n_pts, g_pad)."""
     return torch.stack([_square_point_columns(cache, int(j), t // 3, t % 3,
-                                              g_chunk)
+                                              g_chunk, col_cache)
                         for j, t in zip(js, ts)])
 
 
@@ -1076,6 +1166,7 @@ def assemble_columns_square(
     cache: KernelCache,
     col_idxs: np.ndarray,
     g_chunk: int = 8,
+    col_cache: KernelCache | None = None,
 ) -> torch.Tensor:
     """Kernel columns K[:, col_idxs] (n, k) through the square all-pairs
     layout, the large-A route of single-perm molecules (the cache needs
@@ -1086,6 +1177,7 @@ def assemble_columns_square(
         raise ValueError("assemble_columns_square needs the square fields of "
                          "build_cache(R=...) and a single permutation")
     col_idxs = np.asarray(col_idxs)
+    cc = _col_side(cache, col_cache)
     T = spec.dim_i
     points = col_idxs // T
     partials = col_idxs % T
@@ -1106,7 +1198,7 @@ def assemble_columns_square(
             flat.append(row * g_pad + np.arange(len(sel)))
         blocks = _square_points_batched(cache, uc,
                                         torch.as_tensor(ts, device=dev),
-                                        g_chunk)
+                                        g_chunk, cc)
         outs.append(_square_gather_columns(
             blocks, torch.as_tensor(np.concatenate(flat), device=dev)))
         del blocks
@@ -1138,17 +1230,20 @@ def assemble_block(
     cache: KernelCache,
     I_idx: torch.Tensor,
     J_idx: torch.Tensor,
+    col_cache: KernelCache | None = None,
 ) -> torch.Tensor:
-    """Dense PSD kernel block between training-point sets I (rows) and J
-    (cols): returns (|I|*3A, |J|*3A).  No ridge term.
+    """Dense PSD kernel block between training-point sets I (rows, of this
+    cache) and J (cols, read from ``col_cache`` when given): returns
+    (|I|*3A, |J|*3A).  No ridge term.
 
     Mirrors the reference worker math (train.py:150-236), batched over pairs
     and permutations in one einsum chain.
     """
+    cc = cache if col_cache is None else col_cache
     X_I = cache.X[I_idx]                              # (B, D)
     Jf_I = _inflate_full(cache.Jc[I_idx], cache.S)    # (B, D, T)
-    X_J = cache.X[J_idx][:, cache.P_idx]              # (C, P, D)
-    Jf_J = _inflate_full(cache.Jc[J_idx], cache.S)    # (C, D, T)
+    X_J = cc.X[J_idx][:, cache.P_idx]                 # (C, P, D)
+    Jf_J = _inflate_full(cc.Jc[J_idx], cache.S)       # (C, D, T)
     Jf_Jp = Jf_J[:, cache.P_idx, :]                   # (C, P, D, T) row-permuted
 
     delta = X_I[:, None, None, :] - X_J[None]         # (B, C, P, D)
@@ -1175,13 +1270,24 @@ def assemble_full(
 ) -> torch.Tensor:
     """Full dense PSD kernel matrix (n, n) on the cache's device, assembled
     in row tiles.  Equivalent to -1 * reference _assemble_kernel_mat with all
-    columns (train.py:1121-1308).  ``add_ridge`` optionally adds c*I."""
+    columns (train.py:1121-1308).  ``add_ridge`` optionally adds c*I.  A
+    row-sharded cache is gathered first and the whole matrix formed on
+    every rank (a small-n diagnostic)."""
+    cache = _unsharded(cache)
     K = torch.empty((cache.n, cache.n), dtype=cache.X.dtype,
                     device=cache.device)
     _assemble_full_into(spec.dim_i, cache, K, tile)
     if add_ridge is not None:
         K.diagonal().add_(add_ridge)
     return K
+
+
+def _unsharded(cache: KernelCache) -> KernelCache:
+    """The whole cache on every rank (``parallel.mesh.unshard_cache``)."""
+    if cache.shard is None:
+        return cache
+    from ..parallel.mesh import unshard_cache
+    return unshard_cache(cache)
 
 
 def _assemble_full_into(T: int, cache: KernelCache, K: torch.Tensor,
@@ -1197,11 +1303,13 @@ def _assemble_full_into(T: int, cache: KernelCache, K: torch.Tensor,
 
 
 def _point_block_cols(spec_dim_i: int, cache: KernelCache,
-                      j: torch.Tensor) -> torch.Tensor:
+                      j: torch.Tensor,
+                      col_cache: KernelCache | None = None) -> torch.Tensor:
     """All-row kernel block for a single training point j, given as a (1,)
     index tensor: (n, 3A)."""
     return assemble_block(
-        spec_dim_i, cache, torch.arange(cache.n_train, device=cache.device), j)
+        spec_dim_i, cache, torch.arange(cache.n_train, device=cache.device), j,
+        col_cache=col_cache)
 
 
 def kernel_diag(spec_dim_i: int, cache: KernelCache) -> torch.Tensor:
@@ -1281,7 +1389,18 @@ def _column_index(cache: KernelCache, col, T: int):
     return col, col // T, t // 3, t % 3
 
 
-def kernel_column(spec_dim_i: int, cache: KernelCache, col) -> torch.Tensor:
+def _add_ridge_at(cache: KernelCache, out: torch.Tensor, col: torch.Tensor
+                  ) -> torch.Tensor:
+    """out[col] += lam for a global row ``col`` ((1,) tensor): on a
+    row-sharded cache only its owner's row, with no host read."""
+    if cache.shard is None:
+        out[col] += cache.lam
+        return out
+    return vector_layout(cache).add_at(out, col, cache.lam)
+
+
+def kernel_column(spec_dim_i: int, cache: KernelCache, col,
+                  col_cache: KernelCache | None = None) -> torch.Tensor:
     """Single column of (K + lam*I), (n,): direct assembly of only the
     requested partial, O(n * P * D).
 
@@ -1290,30 +1409,32 @@ def kernel_column(spec_dim_i: int, cache: KernelCache, col) -> torch.Tensor:
     picks its next column on the device (the greedy pivoted Cholesky) queues
     its steps without a round trip.  The JAX package assembles the owning
     point's whole (n, 3A) block and takes one column of it; the column is
-    the same."""
+    the same.  On a row-sharded cache ``col`` is global and the result this
+    cache's rows; the column point is read from ``col_cache``
+    (``_col_side``, gathered here when not given)."""
     col, j, b, x = _column_index(cache, col, spec_dim_i)
+    cc = _col_side(cache, col_cache)
     Pj = cache.P_idx                                         # (P, D)
-    jcol = (cache.Jc[j][0][Pj].index_select(2, x)[..., 0]
+    jcol = (cc.Jc[j][0][Pj].index_select(2, x)[..., 0]
             * cache.S[Pj].index_select(2, b)[..., 0])        # (P, D)
-    Xt_j = cache.X[j][0][Pj]                                 # (P, D)
+    Xt_j = cc.X[j][0][Pj]                                    # (P, D)
     delta = cache.X[:, None, :] - Xt_j[None]                 # (N, P, D)
     base, c_iso = _matern_weights(delta, cache.sig)          # (N, P)
     u = torch.einsum("npd,pd->np", delta, jcol)              # (N, P)
     G = c_iso @ jcol - 5.0 * torch.einsum("np,npd->nd", base * u, delta)
     out = vec_dot_d_desc(cache.Jc, cache.S, G).reshape(-1)   # (n,)
-    out[col] += cache.lam
-    return out
+    return _add_ridge_at(cache, out, col)
 
 
 def kernel_column_compressed(spec_dim_i: int, cache: KernelCache,
-                             col) -> torch.Tensor:
+                             col, col_cache: KernelCache | None = None
+                             ) -> torch.Tensor:
     """Single column of (K + lam*I) without Jacobian inflation, the large-D
-    route of the greedy pivoted Cholesky; ``col`` as in ``kernel_column``
-    (a one-element tensor reads nothing back)."""
+    route of the greedy pivoted Cholesky; ``col`` and ``col_cache`` as in
+    ``kernel_column`` (a one-element tensor reads nothing back)."""
     col, j, b, x = _column_index(cache, col, spec_dim_i)
-    out = _columns_compressed_chunk(cache, j, b, x)[0]
-    out[col] += cache.lam
-    return out
+    out = _columns_compressed_chunk(cache, j, b, x, col_cache)[0]
+    return _add_ridge_at(cache, out, col)
 
 
 # ---------------------------------------------------------------------------
@@ -1358,6 +1479,11 @@ def matvec_ref_ecstr(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
     A = cache.S.shape[1]
     v_F, v_E = v[:N * A * 3], v[N * A * 3:]
     w = d_desc_dot_vec(cache.Jc, cache.S, v_F.reshape(N, A, 3))   # (N, D)
+    if cache.shard is not None:
+        # the rank's part is [its force entries, its energy entries]: one
+        # all-gather brings every point's cotangents and energy coefficient
+        wE = cache.shard.gather(torch.cat([w, v_E[:, None]], dim=1))
+        w, v_E = wE[:, :-1], wE[:, -1]
     wt = perm_expand_w(_at_cache_dtype(cache, w), cache.P_idx)    # (M, D)
     vE_lin = torch.repeat_interleave(v_E, cache.n_perms).to(wt.dtype)  # (M,)
     # e_out starts as sum_m A_exp1 dot / q (predict.py:207)
@@ -1386,14 +1512,17 @@ def assemble_ecstr_blocks(spec_dim_i: int, cache: KernelCache):
 
     The cross block goes column point by column point, 64 at a time, so
     that no (N, M, D) array forms: per block three (N, 64 P, D) transients.
+    On a row-sharded cache both blocks hold this cache's rows and every
+    column.
     """
     K_ee, _ = _ecstr_mats(cache)                      # (N, M)
-    N = cache.n_train
+    N = cache.n_train_global                          # column points
+    Nr = cache.n_train                                # row points
     P = cache.n_perms
     q = SQRT5 / cache.sig
     # sum over the perm copies of each column point -> (N, N); the reference
     # writes K[E_i, E_j] = -(...) summed over perms
-    K_ee_sym = K_ee.reshape(N, N, P).sum(dim=2)
+    K_ee_sym = K_ee.reshape(Nr, N, P).sum(dim=2)
     del K_ee
     # cross block: for column point j (energy) and rows (i, t):
     #   K_ref[F(i,t), E(j)] = sum_p A_exp1[i,(j,p)] (J_i^T delta_i,(j,p))[t]
@@ -1408,11 +1537,11 @@ def assemble_ecstr_blocks(spec_dim_i: int, cache: KernelCache):
         g2 = A1b[:, :, None] * cache.Xqt[mm][None, :, :]
         g = (g1 - g2) / q
         del g1, g2
-        g = g.reshape(N, j1 - j0, P, -1).sum(dim=2)       # (N, Cb, D)
+        g = g.reshape(Nr, j1 - j0, P, -1).sum(dim=2)      # (N, Cb, D)
         blk = vec_dot_d_desc(cache.Jc[:, None], cache.S, g)   # (N, Cb, A, 3)
-        cols.append(blk.reshape(N, j1 - j0, -1))
+        cols.append(blk.reshape(Nr, j1 - j0, -1))
     K_fe_ref = torch.cat(cols, dim=1)                     # (N, N, 3A)
-    K_fe_ref = K_fe_ref.permute(0, 2, 1).reshape(N * spec_dim_i, N)
+    K_fe_ref = K_fe_ref.permute(0, 2, 1).reshape(Nr * spec_dim_i, N)
     # the row-Jacobian form equals the reference's column-Jacobian form under
     # group closure (the worker's -sum over permuted J~ at train.py:228,
     # relabelled); the PSD convention then negates both blocks
@@ -1432,13 +1561,19 @@ def assemble_columns_ecstr(
     ``assemble_ecstr_blocks`` may be passed in, so that a build that takes
     its columns in several calls assembles it once."""
     col_idxs = np.asarray(col_idxs)
-    if col_idxs.max() >= cache.n:
+    if col_idxs.max() >= cache.n_global:
         raise ValueError("only force columns are supported as inducing points")
     if K_fe is None:
         K_fe, _ = assemble_ecstr_blocks(spec.dim_i, cache)
     top = assemble_columns(spec, cache, col_idxs, chunk=chunk)   # (n, k)
     idx = torch.as_tensor(col_idxs, device=cache.device)
-    return torch.cat([top, K_fe[idx].T], dim=0)
+    if cache.shard is None:
+        return torch.cat([top, K_fe[idx].T], dim=0)
+    # the energy rows of force column c are K_fe's row c (its owner's),
+    # restricted to this cache's energy rows
+    rows_fe = vector_layout(cache).take(K_fe, idx)
+    r = slice(cache.row0, cache.row0 + cache.n_train)
+    return torch.cat([top, rows_fe[:, r].T], dim=0)
 
 
 def kernel_diag_ecstr(spec_dim_i: int, cache: KernelCache) -> torch.Tensor:
@@ -1448,7 +1583,8 @@ def kernel_diag_ecstr(spec_dim_i: int, cache: KernelCache) -> torch.Tensor:
     K_ee, _ = _ecstr_mats(cache)                      # (N, M = N P)
     N = cache.n_train
     i = torch.arange(N, device=cache.device)
-    d_ee = K_ee.reshape(N, N, cache.n_perms)[i, i].sum(dim=1)
+    d_ee = K_ee.reshape(N, cache.n_train_global, cache.n_perms)[
+        i, i + cache.row0].sum(dim=1)
     return torch.cat([kernel_diag(spec_dim_i, cache), d_ee])
 
 
@@ -1468,7 +1604,7 @@ def assemble_columns_ecstr_any(
     col_idxs = np.asarray(col_idxs)
     if not np.array_equal(col_idxs, np.sort(col_idxs)):
         raise ValueError("column indices must be sorted")
-    n = cache.n
+    n = cache.n_global
     K_fe, K_ee_sym = blocks if blocks is not None else assemble_ecstr_blocks(
         spec.dim_i, cache)
     f_idx = col_idxs[col_idxs < n]
@@ -1486,7 +1622,9 @@ def assemble_columns_ecstr_any(
 def assemble_full_ecstr(spec: DescriptorSpec, cache: KernelCache,
                         tile: int = 32) -> torch.Tensor:
     """Full PSD kernel with the energy-constraint rows and columns appended:
-    (n + N, n + N) (reference train.py:1205-1208), written into one array."""
+    (n + N, n + N) (reference train.py:1205-1208), written into one array
+    (a row-sharded cache is gathered first, as for ``assemble_full``)."""
+    cache = _unsharded(cache)
     n, N = cache.n, cache.n_train
     K_fe, K_ee = assemble_ecstr_blocks(spec.dim_i, cache)
     K = torch.empty((n + N, n + N), dtype=cache.X.dtype, device=cache.device)

@@ -12,6 +12,12 @@ the flag, the iteration count and the chunk's residual log in ONE transfer
 per chunk.  The host loop between chunks handles convergence, the
 stagnation telemetry (the reference's 100-step efficiency window),
 residual replacement and checkpointing.
+
+On a row-sharded operator (``layout``, a ``parallel.mesh.VecLayout``) the
+vectors are this rank's rows: the dot products and norms are all-reduced,
+so every rank takes the same steps and stops at the same iteration, and the
+iterate handed to the checkpoint callback and returned is gathered whole on
+every rank.
 """
 
 from __future__ import annotations
@@ -57,16 +63,32 @@ def _identity(v):
     return v
 
 
+def _dot(layout, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.dot(a, b) if layout is None else layout.shard.dot(a, b)
+
+
+def _norm(layout, r: torch.Tensor) -> torch.Tensor:
+    return (torch.linalg.norm(r) if layout is None
+            else torch.sqrt(layout.shard.dot(r, r)))
+
+
+def _whole(layout, x: torch.Tensor) -> np.ndarray:
+    """The iterate as a host array, gathered on a row-sharded operator."""
+    return (x if layout is None else layout.gather(x)).cpu().numpy()
+
+
 class PCGSolver:
     """PCG on the operator ``matvec(v)`` with preconditioner ``precon(v)``
     (identity when None), advancing ``chunk`` iterations per host check."""
 
     def __init__(self, matvec: Callable, precon: Callable | None = None,
-                 chunk: int = 25, exact_matvec: Callable | None = None):
+                 chunk: int = 25, exact_matvec: Callable | None = None,
+                 layout=None):
         self.matvec = matvec
         self.precon = _identity if precon is None else precon
         self.chunk = chunk
         self.exact = exact_matvec
+        self.layout = layout
 
     def _run(self, state: CGState, threshold: torch.Tensor, max_steps: int):
         """Up to ``max_steps`` iterations queued on the device; returns the
@@ -80,19 +102,19 @@ class PCGSolver:
         for i in range(max_steps):
             active = ~done
             z = self.precon(r)
-            rho_new = torch.dot(r, z)
+            rho_new = _dot(self.layout, r, z)
             # first iteration overall: p = z; afterwards p = z + beta p
             beta = torch.where(it == 0, torch.zeros_like(rho_new),
                                rho_new / rho)
             p_new = z + beta * p
             q = self.matvec(p_new)
-            alpha = rho_new / torch.dot(p_new, q)
+            alpha = rho_new / _dot(self.layout, p_new, q)
             x = torch.where(active, x + alpha * p_new, x)
             r_new = r - alpha * q
             r = torch.where(active, r_new, r)
             p = torch.where(active, p_new, p)
             rho = torch.where(active, rho_new, rho)
-            resid = torch.where(active, torch.linalg.norm(r_new), resid)
+            resid = torch.where(active, _norm(self.layout, r_new), resid)
             resid_log[i] = torch.where(active, resid, resid_log[i])
             it = it + active.to(it.dtype)
             done = done | (resid <= threshold)
@@ -100,7 +122,8 @@ class PCGSolver:
 
     def solve(self, b: torch.Tensor, **kwargs) -> CGResult:
         return _pcg_drive(self._run, self.matvec, b, chunk=self.chunk,
-                          exact_matvec=self.exact, **kwargs)
+                          exact_matvec=self.exact, layout=self.layout,
+                          **kwargs)
 
 
 def pcg(
@@ -109,6 +132,7 @@ def pcg(
     precon: Callable[[torch.Tensor], torch.Tensor] | None = None,
     chunk: int | None = None,
     exact_matvec: Callable | None = None,
+    layout=None,
     **kwargs,
 ) -> CGResult:
     """One-shot convenience wrapper around PCGSolver.
@@ -119,14 +143,15 @@ def pcg(
     per matvec) check often instead.
 
     ``exact_matvec``: full-precision operator for residual replacement when
-    ``matvec`` is inexact — see _pcg_drive."""
+    ``matvec`` is inexact — see _pcg_drive.  ``layout``: the row layout of
+    a sharded operator (``b`` and the vectors are this rank's rows)."""
     if chunk is None:
-        n = b.shape[0]
+        n = b.shape[0] if layout is None else layout.n
         chunk = 25 if n < 16384 else (50 if n < 49152 else 100)
         if n >= 300_000:
             chunk = 6
-    return PCGSolver(matvec, precon, chunk,
-                     exact_matvec=exact_matvec).solve(b, **kwargs)
+    return PCGSolver(matvec, precon, chunk, exact_matvec=exact_matvec,
+                     layout=layout).solve(b, **kwargs)
 
 
 def _pcg_drive(
@@ -144,6 +169,7 @@ def _pcg_drive(
     break_on_stagnation: bool = False,
     exact_matvec: Callable | None = None,
     replace_every: int = 50,
+    layout=None,
 ) -> CGResult:
     """Host driver for the chunked device loop.
 
@@ -156,8 +182,12 @@ def _pcg_drive(
     every ~``replace_every`` iterations, and before accepting convergence,
     the recursive residual is replaced by the true residual b - A_exact x,
     keeping the search direction and rho.
+
+    ``layout``: the row layout of a sharded operator; the checkpoint
+    callback then runs on every rank with the gathered iterate (the caller
+    writes on one rank).
     """
-    n = b.shape[0]
+    n = b.shape[0] if layout is None else layout.n
     if checkpoint_every_s is None:
         checkpoint_every_s = float(os.environ.get("MLFF_CKPT_EVERY_S", "120"))
     if maxiter is None:
@@ -168,11 +198,11 @@ def _pcg_drive(
     state = CGState(
         x=x0, r=r0, p=torch.zeros_like(b),
         rho=torch.ones((), dtype=b.dtype, device=b.device),
-        resid=torch.linalg.norm(r0),
+        resid=_norm(layout, r0),
         it=torch.full((), it0, dtype=torch.int64, device=b.device),
         done=torch.zeros((), dtype=torch.bool, device=b.device),
     )
-    threshold_t = tol * torch.linalg.norm(b)
+    threshold_t = tol * _norm(layout, b)
     threshold = float(threshold_t)
 
     resid_hist: list[np.ndarray] = []
@@ -205,7 +235,7 @@ def _pcg_drive(
             # residual but keep the search direction and rho
             r_true = b - exact_matvec(state.x)
             state.r = r_true
-            state.resid = torch.linalg.norm(r_true)
+            state.resid = _norm(layout, r_true)
             state.done = state.resid <= threshold_t
             resid_now = float(state.resid)
             done = resid_now <= threshold
@@ -230,17 +260,20 @@ def _pcg_drive(
             callback(it_after, resid_now, eff)
 
         now = time.perf_counter()
-        if (checkpoint_callback is not None
-                and now - t_last_ckpt >= checkpoint_every_s):
+        due = (checkpoint_callback is not None
+               and now - t_last_ckpt >= checkpoint_every_s)
+        if layout is not None and checkpoint_callback is not None:
+            due = layout.shard.any(due)      # the gather is collective
+        if due:
             t_last_ckpt = now
-            checkpoint_callback(state.x.cpu().numpy(), it_after, resid_now)
+            checkpoint_callback(_whole(layout, state.x), it_after, resid_now)
 
         if done or it_after - it0 >= maxiter or (stagnated and break_on_stagnation):
             break
 
     resid = float(state.resid)
     return CGResult(
-        x=state.x.cpu().numpy(),
+        x=_whole(layout, state.x),
         converged=resid <= threshold,
         num_iters=it_after,
         resid=resid,

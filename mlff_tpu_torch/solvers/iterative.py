@@ -22,7 +22,10 @@ sgdml/solvers/iterative_inpoints.py:1011-1066):
     with f64 residual replacement (``residual_replacement``, on by
     default, governs the ozaki one); ``apply_impl`` "xla", "df64" or
     "ozaki".  With energy constraints "mixed" and "ozaki" take the f64
-    matvec, the JAX package's rule.
+    matvec, the JAX package's rule,
+  * the row-sharded solve (``mesh``, ``parallel.mesh``): the cache is
+    sharded before the preconditioner is built, every build returns a
+    sharded operator, and PCG runs on this rank's rows of every vector.
 """
 
 from __future__ import annotations
@@ -102,16 +105,13 @@ def build_preconditioner(
     t0 = time.perf_counter()
 
     def _factor_precon(L):
-        P = pc.woodbury_from_factor(L, lam)
+        P = pc.woodbury_from_factor(L, lam,
+                                    knl.vector_layout(cache, use_E_cstr))
         if apply_impl == "ozaki":
             return pc.ozaki_from_split(P)
         if apply_impl != "df64":
             return P
-        # the JAX package's rule, kept verbatim so that the same task builds
-        # the same operator: 3 components unless the conversion transient
-        # (f64 B + three f32 slices, ~20 bytes per element) passes 8 GB
-        comps = 3 if P.B.numel() * 20 < int(8e9) else 2
-        return pc.df64_from_split(P, components=comps)
+        return pc.df64_from_split(P, components=pc.df64_components(P))
 
     if strategy == "cholesky":
         res, info_chol = pivoted_cholesky(spec, cache, max_rank=k,
@@ -146,7 +146,7 @@ def build_preconditioner(
         inducing = np.arange(k)
 
     elif strategy in LEV_STRATEGIES:
-        n_Fcols = cache.n  # inducing columns are always force columns
+        n_Fcols = cache.n_global  # inducing columns are always force columns
         if strategy == "random_scores":
             inducing = pc.select_random(n_Fcols, k, rng)
         elif strategy in ("truncated_cholesky", "truncated_cholesky_custom"):
@@ -196,9 +196,15 @@ def compute_precon_spectrum(spec, cache, P_apply=None) -> np.ndarray:
     preconditioner-quality diagnostic (reference dev_utils.py:8-58
     materializes the operator column by column).  Dense, on the cache's
     device; the preconditioner is applied to one column at a time, as its
-    applies take vectors."""
+    applies take vectors.  On a row-sharded cache the matrix is formed on
+    every rank and a sharded preconditioner applied to each column's rows,
+    the result gathered."""
     A = knl.assemble_full(spec, cache, add_ridge=float(cache.lam))
-    if P_apply is not None:
+    layout = knl.vector_layout(cache)
+    if P_apply is not None and layout is not None:
+        A = torch.stack([layout.gather(P_apply(layout.scatter(col)))
+                         for col in A.T], dim=1)
+    elif P_apply is not None:
         A = torch.stack([P_apply(col) for col in A.T], dim=1)
     return np.sort(torch.linalg.eigvals(A).real.cpu().numpy())
 
@@ -209,7 +215,7 @@ def _square_matvec_wins(spec: DescriptorSpec, cache: knl.KernelCache) -> bool:
     iteration against the square layout's ~N P A^2 12 elementwise ones, a
     ratio of ~(A - 1) / (4 P).  The square layout also holds
     (N P, A, A, 3) f64 fields, which must stay under 4 GB."""
-    N, A, P = cache.n_train, spec.n_atoms, cache.n_perms
+    N, A, P = cache.n_train_global, spec.n_atoms, cache.n_perms
     sq_bytes = (2 * N * P * A * A * 3 + 2 * N * P * A * A) * 8
     return A >= 64 * P and sq_bytes < int(4e9)
 
@@ -251,6 +257,13 @@ def _matvec_for(task: dict, cache: knl.KernelCache, use_E_cstr: bool):
     return f64, None
 
 
+def _local(layout, v, dev) -> torch.Tensor:
+    """A global host vector as the solve holds it: whole, or this rank's
+    rows on a sharded layout."""
+    v = torch.as_tensor(np.asarray(v), dtype=torch.float64, device=dev)
+    return v if layout is None else layout.scatter(v)
+
+
 def solve_iterative(
     spec: DescriptorSpec,
     cache: knl.KernelCache,
@@ -265,9 +278,20 @@ def solve_iterative(
     seed: int = 0,
     allow_restarts: bool = False,
     svd_cache: dict | None = None,
+    mesh=None,
 ) -> IterativeResult:
     """Train alphas by PCG (reference Iterative.solve,
-    iterative_solver.py:620-1108)."""
+    iterative_solver.py:620-1108).
+
+    ``mesh``: optional ``torch.distributed`` DeviceMesh (``parallel.mesh``).
+    The kernel cache is row-sharded over it BEFORE the preconditioner build
+    (column assembly and the Nystrom whiten and Gram run on each rank's
+    rows), so every build, restarts included, returns a row-sharded
+    factor; y and the warm start are sharded, a square-layout matvec shards its
+    ``SquareCache``, and PCG all-reduces its dot products.  The checkpoint
+    callback receives the gathered iterate on every rank (the caller writes
+    on one), and every rank returns the whole alphas.  N must divide evenly
+    over the mesh (ValueError)."""
     _check_task(task)
     use_E_cstr = bool(task.get("use_E_cstr", False))
     if use_E_cstr:
@@ -280,8 +304,13 @@ def solve_iterative(
                 "diagnostic assembles the force-only (n, n) kernel")
     t_start = time.perf_counter()
     rng = np.random.default_rng(seed)
-    n = cache.n + (cache.n_train if use_E_cstr else 0)
-    n_train = cache.n_train
+    if mesh is not None and cache.shard is None:
+        from ..parallel import mesh as pmesh
+
+        cache = pmesh.shard_cache(cache, mesh)
+    layout = knl.vector_layout(cache, use_E_cstr)
+    n = cache.n_global + (cache.n_train_global if use_E_cstr else 0)
+    n_train = cache.n_train_global
     dim_i = spec.dim_i
     lam = float(cache.lam)
     dev = cache.device
@@ -330,9 +359,16 @@ def solve_iterative(
             np.asarray(task["R_train"], dtype=np.float64),
             np.asarray(task.get("perms", np.arange(spec.n_atoms)[None])),
             cache.sig, lam, device=dev)
+        if mesh is not None:
+            from ..parallel import mesh as pmesh
+
+            # row-sharded like the packed cache, the permuted training side
+            # included
+            sq = pmesh.shard_square_cache(sq, mesh)
         matvec = functools.partial(knl.matvec_psd_square, sq)
         info["matvec_impl"] = "square"
-        log.info("matvec: square all-pairs layout (A=%d)", spec.n_atoms)
+        log.info("matvec: square all-pairs layout (A=%d%s)", spec.n_atoms,
+                 ", row-sharded" if mesh is not None else "")
 
     maxiter = 3 * spec.n_atoms * n_train * 5 if not flag_eigvals else 10
     if task.get("solver_maxiter"):
@@ -343,13 +379,11 @@ def solve_iterative(
             else int(task["solver_maxiter"])
 
     def ckpt(x_np, iters, resid):
-        if save_progr_callback is not None:
-            save_progr_callback(alphas_psd=x_np, num_iters=iters, resid=resid,
-                                inducing_pts_idxs=inducing)
+        save_progr_callback(alphas_psd=x_np, num_iters=iters, resid=resid,
+                            inducing_pts_idxs=inducing)
 
-    y_dev = torch.as_tensor(np.asarray(y), dtype=torch.float64, device=dev)
-    x0 = (torch.as_tensor(alphas0, dtype=torch.float64, device=dev)
-          if alphas0 is not None else None)
+    y_dev = _local(layout, y, dev)
+    x0 = _local(layout, alphas0, dev) if alphas0 is not None else None
     num_restarts = 0
     idxs_ordered_by_lev_score = None
     it0_initial = num_iters0  # maxiter budgets TOTAL new iterations across restarts
@@ -358,10 +392,13 @@ def solve_iterative(
             matvec, y_dev, precon=P_apply, x0=x0,
             tol=float(task.get("solver_tol", 1e-4)),
             maxiter=max(0, maxiter - (num_iters0 - it0_initial)),
-            callback=callback, checkpoint_callback=ckpt,
+            callback=callback,
+            checkpoint_callback=(ckpt if save_progr_callback is not None
+                                 else None),
             it0=num_iters0,
             break_on_stagnation=allow_restarts,
             exact_matvec=exact_matvec,
+            layout=layout,
         )
         if result.num_iters - it0_initial >= maxiter:
             break
@@ -390,7 +427,7 @@ def solve_iterative(
             rank_tol=float(task.get("rank_tol", 1e-10)),
             apply_impl=str(task.get("apply_impl", "xla")),
         )
-        x0 = torch.as_tensor(result.x, dtype=torch.float64, device=dev)
+        x0 = _local(layout, result.x, dev)
         num_iters0 = result.num_iters
         log.info("CG restart %d: inducing points -> %d", num_restarts,
                  n_inducing_pts)

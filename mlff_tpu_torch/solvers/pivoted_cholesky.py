@@ -24,6 +24,14 @@ energy-constrained system (n + N rows; reference
 iterative_cholesky.py:351-373): force columns are assembled as before, energy
 columns are read from the dense (n, N) and (N, N) energy blocks, which each
 build assembles once.
+
+On a row-sharded cache (``parallel.mesh.shard_cache``) each factorization
+keeps this rank's rows of L and returns the global pivots and residual
+diagonal on every rank.  The greedy loop picks its pivot on the global
+residual diagonal (an all-gather of every rank's (max, index), ties to the
+lowest index as ``torch.argmax`` breaks them) and broadcasts the pivot's row
+of L from its owner; the panel and block-RP variants rank their candidates
+on the all-gathered diagonal, with the same generator on every rank.
 """
 
 from __future__ import annotations
@@ -43,10 +51,20 @@ log = get_logger(__name__)
 
 
 class PivotedCholeskyResult(NamedTuple):
-    L: torch.Tensor               # (n, k) low-rank factor
+    L: torch.Tensor               # (n, k) low-rank factor (this rank's rows)
     pivots: torch.Tensor          # (k,) chosen column indices (pivot order)
     pivot_values: torch.Tensor    # (k,) diagonal value at each pivot
     remaining_diag: torch.Tensor  # (n,) residual diagonal after k steps
+
+
+def _take(layout, t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """t[idx] at global rows, gathered from their owners when sharded."""
+    return t[idx] if layout is None else layout.take(t, idx)
+
+
+def _whole(layout, v: torch.Tensor) -> torch.Tensor:
+    """A row-sharded vector gathered whole (the vector itself unsharded)."""
+    return v if layout is None else layout.gather(v)
 
 
 def _seed_diag(spec: DescriptorSpec, cache: knl.KernelCache, diag,
@@ -70,10 +88,12 @@ def _column_assembler(spec: DescriptorSpec, cache: knl.KernelCache,
 
 
 def _greedy_loop(diag0: torch.Tensor, max_rank: int,
-                 getcol) -> PivotedCholeskyResult:
+                 getcol, layout=None) -> PivotedCholeskyResult:
     """The greedy loop over the columns ``getcol(p)`` of (K + lam I), p a
     (1,) index tensor.  Every step is queued on the device without a host
-    read: the pivot stays a device tensor throughout."""
+    read: the pivot stays a device tensor throughout.  ``layout``: diag0
+    and the columns are this rank's rows of a sharded system (module
+    docstring)."""
     n = diag0.shape[0]
     dev, dtype = diag0.device, diag0.dtype
     L = torch.zeros((n, max_rank), dtype=dtype, device=dev)
@@ -82,19 +102,25 @@ def _greedy_loop(diag0: torch.Tensor, max_rank: int,
     pivots = torch.zeros(max_rank, dtype=torch.int64, device=dev)
     pvals = torch.zeros(max_rank, dtype=dtype, device=dev)
     if max_rank == 0:
-        return PivotedCholeskyResult(L, pivots, pvals, diag)
+        return PivotedCholeskyResult(L, pivots, pvals, _whole(layout, diag))
 
     # numerical-rank floor: pivots this far below the initial diagonal scale
     # are roundoff; emit a zero column instead of dividing by ~0 (the caller
     # still sees the raw pivot values for PSD validation)
-    eps_floor = torch.max(diag0) * 1e-30
+    top = torch.max(diag0)
+    if layout is not None:
+        top = layout.shard.all_reduce(top, op=torch.distributed.ReduceOp.MAX)
+    eps_floor = top * 1e-30
     neg_inf = torch.full((), -torch.inf, dtype=dtype, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
 
     for m in range(max_rank):
         # greedy pivot: largest remaining diagonal among unchosen columns
-        p = torch.argmax(torch.where(chosen, neg_inf, diag)).reshape(1)
-        pval = diag[p]                                    # (1,)
+        if layout is None:
+            p = torch.argmax(torch.where(chosen, neg_inf, diag)).reshape(1)
+            pval = diag[p]                                # (1,)
+        else:
+            p, pval = layout.argmax(torch.where(chosen, neg_inf, diag))
         ok = pval > eps_floor
         l_mm = torch.sqrt(torch.maximum(pval, eps_floor))
 
@@ -103,19 +129,26 @@ def _greedy_loop(diag0: torch.Tensor, max_rank: int,
         # Schur correction from the m filled columns: one (n, m) x (m,) GEMV
         newcol = col
         if m:
-            newcol = col - L[:, :m] @ L[p, :m][0]
+            newcol = col - L[:, :m] @ _take(layout, L[:, :m], p)[0]
         newcol = newcol / l_mm
         # rows of already-chosen pivots are exactly zero in the true factor
         newcol = torch.where(chosen, zero, newcol)
-        newcol[p] = l_mm
+        if layout is None:
+            newcol[p] = l_mm
+        else:
+            layout.set_at(newcol, p, l_mm)
         newcol = torch.where(ok, newcol, zero)
 
         L[:, m] = newcol
         diag = diag - newcol**2
-        chosen.index_fill_(0, p, True)
+        if layout is None:
+            chosen.index_fill_(0, p, True)
+        else:
+            layout.set_at(chosen, p, torch.ones(1, dtype=torch.bool,
+                                                device=dev))
         pivots[m:m + 1] = p
         pvals[m:m + 1] = pval
-    return PivotedCholeskyResult(L, pivots, pvals, diag)
+    return PivotedCholeskyResult(L, pivots, pvals, _whole(layout, diag))
 
 
 def _pivoted_cholesky_device(
@@ -128,8 +161,10 @@ def _pivoted_cholesky_device(
     """The greedy loop over (K + lam I).  ``compressed`` takes the columns
     from ``kernel_column_compressed`` (large D)."""
     getcol = knl.kernel_column_compressed if compressed else knl.kernel_column
+    cc = knl._col_side(cache)            # gathered once on a sharded cache
     return _greedy_loop(diag0, max_rank,
-                        lambda p: getcol(spec_dim_i, cache, p))
+                        lambda p: getcol(spec_dim_i, cache, p, cc),
+                        knl.vector_layout(cache))
 
 
 def _pivoted_cholesky_device_ecstr(
@@ -146,18 +181,27 @@ def _pivoted_cholesky_device_ecstr(
     device tensor, so both candidates are formed and the pivot's kind picks
     one (the JAX package branches with ``lax.cond``; the column is the
     same)."""
-    n_f = cache.n
+    n_f = cache.n_global
+    cc = knl._col_side(cache)
+    layout = knl.vector_layout(cache, use_E_cstr=True)
+    # a force column's energy rows: row pf of K_fe (its owner's), at this
+    # cache's energy rows
+    e_rows = slice(cache.row0, cache.row0 + cache.n_train)
+    f_layout = knl.vector_layout(cache)
 
     def getcol(p):
         pf = torch.clamp(p, max=n_f - 1)                  # as a force column
-        col_f = torch.cat([knl.kernel_column(spec_dim_i, cache, pf),
-                           K_fe[pf][0]])                  # + lam e_p inside
+        col_f = torch.cat([knl.kernel_column(spec_dim_i, cache, pf, cc),
+                           _take(f_layout, K_fe, pf)[0][e_rows]])
         j = torch.clamp(p - n_f, min=0)                   # as an energy column
         col_e = torch.cat([K_fe[:, j][:, 0], K_ee[:, j][:, 0]])
-        col_e[p] += cache.lam
+        if layout is None:
+            col_e[p] += cache.lam
+        else:
+            layout.add_at(col_e, p, cache.lam)
         return torch.where(p < n_f, col_f, col_e)
 
-    return _greedy_loop(diag0, max_rank, getcol)
+    return _greedy_loop(diag0, max_rank, getcol, layout)
 
 
 def pivoted_cholesky(
@@ -176,7 +220,8 @@ def pivoted_cholesky(
     the factorization runs over the energy-constrained extended system.
 
     Returns the factor plus an info dict in the reference's
-    ``info_cholesky`` schema (incomplete_cholesky.py:86-88).
+    ``info_cholesky`` schema (incomplete_cholesky.py:86-88).  ``diag``: the
+    seed diagonal over this cache's rows.
     """
     t0 = time.perf_counter()
     diag = _seed_diag(spec, cache, diag, use_E_cstr)
@@ -199,7 +244,8 @@ def pivoted_cholesky(
     info = {
         "time_cholesky": np.full(max_rank, elapsed / max(max_rank, 1)),
         "L.shape": tuple(res.L.shape),
-        "index_columns": _full_index_order(pivots, diag.shape[0]),
+        "index_columns": _full_index_order(pivots,
+                                           res.remaining_diag.shape[0]),
         "pivots": pivots,
         "remaining_diag_error": float(torch.linalg.norm(res.remaining_diag,
                                                         ord=1)),
@@ -209,8 +255,12 @@ def pivoted_cholesky(
     return res, info
 
 
-def _add_ridge(cols: torch.Tensor, idx: torch.Tensor, lam: float):
-    """cols[idx[j], j] += lam: the ridge on the assembled columns' own rows."""
+def _add_ridge(cols: torch.Tensor, idx: torch.Tensor, lam: float,
+               layout=None):
+    """cols[idx[j], j] += lam: the ridge on the assembled columns' own rows
+    (their owners' rows when sharded)."""
+    if layout is not None:
+        return layout.add_at(cols, idx, lam)
     cols[idx, torch.arange(idx.shape[0], device=cols.device)] += lam
     return cols
 
@@ -266,16 +316,17 @@ def block_rp_cholesky(
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed)
     dev = cache.device
+    layout = knl.vector_layout(cache, use_E_cstr)
     diag = _seed_diag(spec, cache, diag, use_E_cstr)
     assemble = _column_assembler(spec, cache, use_E_cstr)
-    n = diag.shape[0]
+    diag_host = _whole(layout, diag).cpu().numpy().copy()
+    n = diag_host.shape[0]
 
     pivots_all: list[np.ndarray] = []
     pvals_all: list[np.ndarray] = []
     chosen = np.zeros(n, dtype=bool)
-    diag_host = diag.cpu().numpy().copy()
 
-    L = torch.zeros((n, max_rank), dtype=diag.dtype, device=dev)
+    L = torch.zeros((diag.shape[0], max_rank), dtype=diag.dtype, device=dev)
     off = 0
     while off < max_rank:
         b = min(block, max_rank - off)
@@ -292,9 +343,9 @@ def block_rp_cholesky(
         idx_dev = torch.as_tensor(idx, device=dev)
 
         cols = assemble(idx)                                 # (n, b), no ridge
-        cols = _add_ridge(cols, idx_dev, float(cache.lam))
-        Lb = _rp_block_update(L[:, :off], cols, idx_dev)     # (n, b)
-        Lb_host_diag = torch.sum(Lb * Lb, dim=1).cpu().numpy()
+        cols = _add_ridge(cols, idx_dev, float(cache.lam), layout)
+        Lb = _rp_block_update(L[:, :off], cols, idx_dev, layout)  # (n, b)
+        Lb_host_diag = _whole(layout, torch.sum(Lb * Lb, dim=1)).cpu().numpy()
         diag_host = diag_host - Lb_host_diag
         pvals_all.append(np.clip(diag_host[idx] + Lb_host_diag[idx], 0, None))
         pivots_all.append(idx)
@@ -334,17 +385,18 @@ def panel_pivoted_cholesky(
     """
     t0 = time.perf_counter()
     dev = cache.device
+    layout = knl.vector_layout(cache, use_E_cstr)
     diag = _seed_diag(spec, cache, diag, use_E_cstr)
     assemble = _column_assembler(spec, cache, use_E_cstr)
-    n = diag.shape[0]
+    diag_host = _whole(layout, diag).cpu().numpy().copy()
+    n = diag_host.shape[0]
 
     pivots_all: list[np.ndarray] = []
     pvals_all: list[np.ndarray] = []
     chosen = np.zeros(n, dtype=bool)
-    diag_host = diag.cpu().numpy().copy()
     eps_floor = float(diag_host.max()) * 1e-30
 
-    L = torch.zeros((n, max_rank), dtype=diag.dtype, device=dev)
+    L = torch.zeros((diag.shape[0], max_rank), dtype=diag.dtype, device=dev)
     off = 0
     while off < max_rank:
         b = min(block, max_rank - off)
@@ -357,9 +409,9 @@ def panel_pivoted_cholesky(
         idx_dev = torch.as_tensor(idx, device=dev)
 
         cols = assemble(idx)                                 # (n, b), no ridge
-        cols = _add_ridge(cols, idx_dev, float(cache.lam))
-        corr = _schur_correct(L[:, :off], cols, idx_dev)     # (n, b)
-        A_ss = corr[idx_dev].cpu().numpy()                   # (b, b)
+        cols = _add_ridge(cols, idx_dev, float(cache.lam), layout)
+        corr = _schur_correct(L[:, :off], cols, idx_dev, layout)  # (n, b)
+        A_ss = _take(layout, corr, idx_dev).cpu().numpy()    # (b, b)
 
         # within-block greedy pivoting on the host: keep the numerically
         # independent prefix, in pivot order
@@ -380,7 +432,7 @@ def panel_pivoted_cholesky(
             torch.as_tensor(Fr_inv, device=dev), off)
 
         pvals_all.append(np.clip(diag_host[idx[perm]], 0, None))
-        diag_host = diag_host - Lb_sumsq.cpu().numpy()
+        diag_host = diag_host - _whole(layout, Lb_sumsq).cpu().numpy()
         pivots_all.append(idx[perm])
         chosen[idx[perm]] = True
         off += r
@@ -391,11 +443,12 @@ def panel_pivoted_cholesky(
                             time.perf_counter() - t0, block)
 
 
-def _schur_correct(L: torch.Tensor, cols: torch.Tensor, idx: torch.Tensor):
+def _schur_correct(L: torch.Tensor, cols: torch.Tensor, idx: torch.Tensor,
+                   layout=None):
     """cols - L L[idx]^T: rank-k_cur correction of the candidate panel."""
     if L.shape[1] == 0:
         return cols
-    return cols - L @ L[idx].T
+    return cols - L @ _take(layout, L, idx).T
 
 
 def _panel_commit(L: torch.Tensor, corr: torch.Tensor, perm: torch.Tensor,
@@ -407,11 +460,12 @@ def _panel_commit(L: torch.Tensor, corr: torch.Tensor, perm: torch.Tensor,
     return torch.sum(Lb * Lb, dim=1)
 
 
-def _rp_block_update(L: torch.Tensor, cols: torch.Tensor, idx: torch.Tensor):
+def _rp_block_update(L: torch.Tensor, cols: torch.Tensor, idx: torch.Tensor,
+                     layout=None):
     """One RPCholesky block step: Schur-correct the sampled columns against
     the current factor and orthonormalize within the block."""
-    corr = _schur_correct(L, cols, idx)
-    A_ss = corr[idx]                                        # (b, b)
+    corr = _schur_correct(L, cols, idx, layout)
+    A_ss = _take(layout, corr, idx)                         # (b, b)
     # small relative jitter keeps the in-block factorization finite when the
     # sampled block is (nearly) rank-deficient; rejected directions then
     # contribute ~zero columns

@@ -36,6 +36,15 @@ PyTorch port of the main slice of ``mlff_tpu.solvers.preconditioners``
 All builders work in the PSD convention (K + lam*I).  With ``use_E_cstr`` the
 Nystrom columns (force columns still) and the eigenvector family's dense
 kernel span the energy-constrained system of n + N rows.
+
+On a row-sharded cache (``parallel.mesh.shard_cache``) every builder
+returns a sharded operator: B (and each column block, df64 word or Ozaki
+digit plane) holds this rank's rows, the fused T its columns, W2 and lam
+are replicated, and its ``layout`` (``parallel.mesh.VecLayout``) makes each
+apply all-reduce its (m,) partial B^T v.  The Nystrom build all-reduces
+its Gram, gathers K_mm from the rows' owners and probes the Gram of the
+stored, sharded B; the dense diagnostics run replicated on the gathered
+cache and keep their rows.
 """
 
 from __future__ import annotations
@@ -98,6 +107,18 @@ def _gram_impl_for(n_rows: int) -> str:
     return _build_mode()
 
 
+def _rows_at(layout, t: torch.Tensor, idx) -> torch.Tensor:
+    """t[idx] at global row indices: the rows themselves, or on a sharded
+    layout gathered from their owners onto every rank."""
+    idx = torch.as_tensor(np.asarray(idx), device=t.device)
+    return t[idx] if layout is None else layout.take(t, idx)
+
+
+def _sum_ranks(layout, t: torch.Tensor) -> torch.Tensor:
+    """A per-rank partial sum over rows, summed over the ranks."""
+    return t if layout is None else layout.shard.all_reduce(t)
+
+
 def _oz_slice_T(X: torch.Tensor, s: int):
     """One slicing pass serving both operands of a Gram X^T X: (left, right)
     with right = slice_digits(X, axis=0) and left its transpose (per-column
@@ -156,16 +177,18 @@ def _whiten_gram(K_nm: torch.Tensor, W1: torch.Tensor, impl: str,
     return B, inner
 
 
-def _gram_probe(B: torch.Tensor, inner: np.ndarray) -> float:
+def _gram_probe(B: torch.Tensor, inner: np.ndarray, layout=None) -> float:
     """Max |inner - B^T B| over the full diagonal and 8 seeded cross
     entries, each from an independent f64 column dot: the guard of the
-    split factor's self-consistency."""
+    split factor's self-consistency (on a sharded B, of the stored rows
+    with the dots all-reduced)."""
     m = inner.shape[0]
     rng_p = np.random.default_rng(0)
     ii = np.concatenate([np.arange(m), rng_p.integers(0, m, size=min(8, m))])
     jj = np.concatenate([np.arange(m), rng_p.integers(0, m, size=min(8, m))])
     exact = torch.sum(B[:, torch.as_tensor(ii, device=B.device)]
                       * B[:, torch.as_tensor(jj, device=B.device)], dim=0)
+    exact = _sum_ranks(layout, exact)
     return float(np.abs(inner[ii, jj] - exact.cpu().numpy()).max())
 
 
@@ -204,6 +227,7 @@ class WoodburyPreconditioner:
     T: torch.Tensor    # (k, n)
     lam: float
     info: dict
+    layout: object = None   # parallel.mesh.VecLayout of a sharded T
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         return woodbury_apply(self, v)
@@ -211,7 +235,7 @@ class WoodburyPreconditioner:
 
 def woodbury_apply(P: WoodburyPreconditioner, v: torch.Tensor) -> torch.Tensor:
     """P^-1 v = lam^-1 (v - T^T (T v))."""
-    return (v - P.T.T @ (P.T @ v)) / P.lam
+    return (v - P.T.T @ _sum_ranks(P.layout, P.T @ v)) / P.lam
 
 
 def _pad_factor_rows(T: torch.Tensor) -> torch.Tensor:
@@ -244,6 +268,7 @@ class WoodburySplitPreconditioner:
     W2: torch.Tensor   # (m, m) inner inverse-sqrt factor
     lam: float
     info: dict
+    layout: object = None   # parallel.mesh.VecLayout of a sharded B
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         return woodbury_split_apply(self, v)
@@ -259,8 +284,8 @@ def woodbury_split_apply(P: WoodburySplitPreconditioner,
                          v: torch.Tensor) -> torch.Tensor:
     """lam^-1 (v - B W2 W2^T B^T v): two skinny (n, m) passes (DGEMV) and
     two small (m, m) ones."""
-    u = P.B.T @ v                      # (m,)  == B^T v
-    x = P.W2 @ (P.W2.T @ u)            # (m,)
+    u = _sum_ranks(P.layout, P.B.T @ v)   # (m,)  == B^T v
+    x = P.W2 @ (P.W2.T @ u)               # (m,)
     return (v - P.B @ x) / P.lam
 
 
@@ -282,6 +307,7 @@ def _woodbury_split_apply_chunked(P: WoodburySplitPreconditioner,
     u = torch.zeros(P.B.shape[1], dtype=v.dtype, device=v.device)
     for start in range(0, n, chunk):
         u += P.B[start:start + chunk].T @ v[start:start + chunk]
+    u = _sum_ranks(P.layout, u)
     x = P.W2 @ (P.W2.T @ u)
     y = torch.empty_like(v)
     for start in range(0, n, chunk):
@@ -325,6 +351,7 @@ class WoodburyColBlockPreconditioner:
     W2: torch.Tensor   # (m, m)
     lam: float
     info: dict
+    layout: object = None   # parallel.mesh.VecLayout of sharded blocks
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         return woodbury_colblock_apply(self, v)
@@ -343,7 +370,7 @@ def _block_pass2(B: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def woodbury_colblock_apply(P: WoodburyColBlockPreconditioner,
                             v: torch.Tensor) -> torch.Tensor:
     """lam^-1 (v - B W2 W2^T B^T v) over the column blocks of B."""
-    u = torch.cat([_block_pass1(B, v) for B in P.Bs])
+    u = _sum_ranks(P.layout, torch.cat([_block_pass1(B, v) for B in P.Bs]))
     x = P.W2 @ (P.W2.T @ u)
     y = torch.zeros_like(v)
     off = 0
@@ -376,6 +403,7 @@ class DF64WoodburyPreconditioner:
     lam: float
     Bm: torch.Tensor | None = None   # (n_rows, m) f32
     info: dict | None = None
+    layout: object = None   # parallel.mesh.VecLayout of sharded words
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         return df64_woodbury_apply(self, v)
@@ -395,6 +423,7 @@ def df64_woodbury_apply(P: DF64WoodburyPreconditioner,
         # third-component correction: Bm ~ 2^-48 |B|, so a plain f32 GEMV
         # carries it at ~2^-72 overall
         u = u + (vp.to(torch.float32) @ P.Bm).to(torch.float64)
+    u = _sum_ranks(P.layout, u)
     x = P.W2 @ (P.W2.T @ u)                             # small f64 GEMVs
     y = df64_gemv.df64_b_x(P.Bh, P.Bl, x)              # (n_rows,) f64
     if P.Bm is not None:
@@ -424,6 +453,19 @@ def _split_pad_b(B: torch.Tensor, n_pad: int, m_pad: int,
     return tuple(out)
 
 
+# the conversion transient past which a df64 factor keeps 2 components
+DF64_TRANSIENT_BYTES = int(8e9)
+
+
+def df64_components(P: WoodburySplitPreconditioner) -> int:
+    """The JAX package's rule, kept verbatim so that the same task builds
+    the same operator: 3 components unless the conversion transient (f64 B
+    + three f32 slices, ~20 bytes per element) passes 8 GB.  Counted on the
+    factor's global rows: a row-sharded B holds this rank's only."""
+    rows = P.B.shape[0] if P.layout is None else P.layout.n
+    return 3 if rows * P.B.shape[1] * 20 < DF64_TRANSIENT_BYTES else 2
+
+
 def df64_from_split(P: WoodburySplitPreconditioner, components: int = 3
                     ) -> DF64WoodburyPreconditioner:
     """The df64 form of a split preconditioner.  P is consumed: its f64 B
@@ -440,7 +482,7 @@ def df64_from_split(P: WoodburySplitPreconditioner, components: int = 3
     info = dict(P.info, apply_impl="df64", components=3 if Bm is not None
                 else 2)
     return DF64WoodburyPreconditioner(Bh=Bh, Bl=Bl, W2=P.W2, lam=P.lam, Bm=Bm,
-                                      info=info)
+                                      info=info, layout=P.layout)
 
 
 def _split_block_f32(B: torch.Tensor):
@@ -449,7 +491,7 @@ def _split_block_f32(B: torch.Tensor):
 
 
 def df64_from_colblocks(Bs, W2: torch.Tensor, lam: float,
-                        info: dict | None = None
+                        info: dict | None = None, layout=None
                         ) -> DF64WoodburyPreconditioner:
     """Column-blocked f64 factor -> the monolithic 2-component df64 form:
     each block is split into its (hi, lo) pair, then the pieces are
@@ -465,7 +507,7 @@ def df64_from_colblocks(Bs, W2: torch.Tensor, lam: float,
              Bh.shape[0], m)
     return DF64WoodburyPreconditioner(
         Bh=Bh, Bl=Bl, W2=_pad_square(W2, m), lam=float(lam), Bm=None,
-        info=dict(info or {}, apply_impl="df64", components=2))
+        info=dict(info or {}, apply_impl="df64", components=2), layout=layout)
 
 
 @dataclass
@@ -487,6 +529,7 @@ class OzakiApplyPreconditioner:
     W2: torch.Tensor      # (m, m)
     lam: float
     info: dict | None = None
+    layout: object = None   # parallel.mesh.VecLayout of sharded digits
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         return ozaki_woodbury_apply(self, v)
@@ -495,7 +538,9 @@ class OzakiApplyPreconditioner:
 def ozaki_from_split(P: WoodburySplitPreconditioner, s: int = 7
                      ) -> OzakiApplyPreconditioner:
     """The Ozaki-digit form of a split preconditioner.  P is consumed: its
-    f64 B is dropped after slicing (``P.B`` becomes None)."""
+    f64 B is dropped after slicing (``P.B`` becomes None).  A sharded P's
+    rows get per-rank column scales: each rank's digits represent its rows
+    exactly, and its partial B^T v is scaled before the all-reduce."""
     n, m = P.B.shape
     n_pad = -(-n // 256) * 256
     B = torch.nn.functional.pad(P.B, (0, 0, 0, n_pad - n))
@@ -506,7 +551,7 @@ def ozaki_from_split(P: WoodburySplitPreconditioner, s: int = 7
                 digit_bytes=sum(d.numel() * d.element_size() for d in digits))
     return OzakiApplyPreconditioner(B_dig=tuple(digits),
                                     sB=scale.reshape(-1), W2=P.W2,
-                                    lam=P.lam, info=info)
+                                    lam=P.lam, info=info, layout=P.layout)
 
 
 def _ozaki_gemv_digits(B_dig: tuple, x_dig: list, sx: torch.Tensor,
@@ -553,6 +598,7 @@ def ozaki_woodbury_apply(P: OzakiApplyPreconditioner, v: torch.Tensor
     vp = torch.nn.functional.pad(v, (0, n_pad - n))
     sv, v_dig = ozaki.slice_digits(vp[:, None], axis=0, s=s)
     u = _ozaki_gemv_digits(P.B_dig, v_dig, sv.reshape(()), True) * P.sB
+    u = _sum_ranks(P.layout, u)
     x = P.W2 @ (P.W2.T @ u)
     # fold the column scales into the small vector (one grid per digit
     # pair for the exact segment sums)
@@ -651,24 +697,28 @@ def cho_factor_stable(M: np.ndarray, max_tries: int = 20) -> np.ndarray:
     raise np.linalg.LinAlgError("cho_factor_stable failed to regularize matrix")
 
 
-def woodbury_from_factor(L: torch.Tensor, lam: float
+def woodbury_from_factor(L: torch.Tensor, lam: float, layout=None
                          ) -> WoodburySplitPreconditioner:
     """The Woodbury apply operator of a low-rank factor L (n, k):
     P^-1 = lam^-1 (I - L (lam I + L^T L)^-1 L^T), applied through the split
     factors B = L and W2 = chol(lam I + L^T L)^-T (host LAPACK on the (k, k)
     Gram, by the build engine).  The split apply never freezes a triangular
-    solve's noise into a (k, n) product: see WoodburySplitPreconditioner."""
-    inner = _host_sym(_gram(L, _gram_impl_for(L.shape[0])))
+    solve's noise into a (k, n) product: see WoodburySplitPreconditioner.
+    ``layout``: L holds this rank's rows of a sharded factor (the Gram is
+    all-reduced)."""
+    n_rows = L.shape[0] if layout is None else layout.n
+    inner = _host_sym(_sum_ranks(layout, _gram(L, _gram_impl_for(n_rows))))
     W2 = torch.as_tensor(_host_inner_isqrt(inner, lam, "chol"),
                          dtype=torch.float64, device=L.device)
     B, W2 = _pad_split(L, W2)
     return WoodburySplitPreconditioner(B=B, W2=W2, lam=float(lam),
-                                       info={"apply_impl": "xla"})
+                                       info={"apply_impl": "xla"},
+                                       layout=layout)
 
 
 def _nystrom_factor_split(
     K_nm: torch.Tensor, inducing_idxs: np.ndarray, lam: float,
-    rank_tol: float, host_decomp: str = "eigh",
+    rank_tol: float, host_decomp: str = "eigh", layout=None,
 ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """Split Nyström factorization (B (n, m), W2 (m, m), info) with
     B = K_nm W1 and W2 W2^T = (B^T B + lam I)^+.
@@ -677,12 +727,15 @@ def _nystrom_factor_split(
     stored B itself (``B.T @ B`` of the same tensor), never a congruence
     W1^T (K_nm^T K_nm) W1 evaluated elsewhere.  With lam = 1e-10 the
     (w2 + lam)^-1/2 scaling needs ``inner`` to match B's true Gram to ~lam
-    absolute in its small eigenvalues.
+    absolute in its small eigenvalues.  On a sharded layout (K_nm this
+    rank's rows) K_mm is gathered from its rows' owners, and the inner
+    matrix is the all-reduced Gram of the stored, sharded B, probed on
+    that same B.
     """
     dev = K_nm.device
     m = len(inducing_idxs)
     t = _StageTimer(dev)
-    K_mm = _host_sym(K_nm[torch.as_tensor(inducing_idxs, device=dev)])
+    K_mm = _host_sym(_rows_at(layout, K_nm, inducing_idxs))
     t.mark("gather_Kmm")
     W1 = torch.as_tensor(_host_whiten_factor(K_mm, rank_tol, host_decomp),
                          dtype=torch.float64, device=dev)
@@ -691,19 +744,19 @@ def _nystrom_factor_split(
     impl = _build_mode()
     B, inner_dev = _whiten_gram(K_nm, W1, impl)      # (n, m), B^T B
     t.mark("whiten_gram")
-    inner = _host_sym(inner_dev)
+    inner = _host_sym(_sum_ranks(layout, inner_dev))
     # GUARD: inner must match B's true Gram to ~lam ABSOLUTE, or the
     # (w2 + lam)^-1/2 scaling silently stops preconditioning.  Probe the full
     # diagonal and a few random cross entries with independent column dots;
     # on failure recompute the whole Gram on host from the factor.
-    probe_err = _gram_probe(B, inner)
+    probe_err = _gram_probe(B, inner, layout)
     fired = probe_err > max(0.1 * lam, 1e-12)
     if fired:
         log.warning(
             "device Gram failed the spot check (max abs err %.2e vs lam = "
             "%.0e): recomputing inner on host from the factor (%d x %d)",
             probe_err, lam, B.shape[0], m)
-        B_host = B.cpu().numpy()
+        B_host = (B if layout is None else layout.gather(B)).cpu().numpy()
         inner = B_host.T @ B_host
     t.mark("gram_probe")
     W2 = torch.as_tensor(_host_inner_isqrt(inner, lam, host_decomp),
@@ -717,12 +770,12 @@ def _nystrom_factor_split(
 
 def _nystrom_factor_eigh(
     K_nm: torch.Tensor, inducing_idxs: np.ndarray, lam: float,
-    rank_tol: float, host_decomp: str = "eigh",
+    rank_tol: float, host_decomp: str = "eigh", layout=None,
 ) -> torch.Tensor:
     """Fused factor T = W2^T B^T (m, n) — for leverage scores only; the
     preconditioner apply never materializes it (see module docstring)."""
     B, W2, _ = _nystrom_factor_split(K_nm, inducing_idxs, lam, rank_tol,
-                                     host_decomp)
+                                     host_decomp, layout)
     return (B @ W2).T
 
 
@@ -781,6 +834,7 @@ def _nystrom_factor_split_colblocked(
     rank_tol: float,
     block_cols: int,
     use_E_cstr: bool = False,
+    layout=None,
 ) -> tuple[tuple, torch.Tensor, dict]:
     """Column-blocked variant of ``_nystrom_factor_split``: K_nm is
     assembled, whitened in place and kept as column blocks of <= block_cols,
@@ -807,15 +861,15 @@ def _nystrom_factor_split_colblocked(
                                        inducing_idxs[off:off + block_cols])
                   for off in offs]
     t.mark("assemble")
-    idxs_dev = torch.as_tensor(inducing_idxs, device=dev)
-    K_mm = np.concatenate([K_c[idxs_dev].cpu().numpy() for K_c in blocks],
-                          axis=1)
+    K_mm = np.concatenate([_rows_at(layout, K_c, inducing_idxs).cpu().numpy()
+                           for K_c in blocks], axis=1)
     t.mark("gather_Kmm")
     W1 = torch.as_tensor(_host_whiten_factor(K_mm, rank_tol, "chol"),
                          dtype=torch.float64, device=dev)
     t.mark("host_W1")
     mode = _build_mode()
-    gram_impl = _gram_impl_for(blocks[0].shape[0])
+    gram_impl = _gram_impl_for(blocks[0].shape[0] if layout is None
+                               else layout.n)
     for c in reversed(range(len(blocks))):
         blocks[c] = _whiten_colblock(blocks[c], blocks[:c], W1, offs[c],
                                      offs[:c], impl=mode)
@@ -823,7 +877,8 @@ def _nystrom_factor_split_colblocked(
     inner = np.zeros((m, m))
     for a in range(len(blocks)):
         for b in range(a, len(blocks)):
-            G = _gram_pair(blocks[a], blocks[b], gram_impl).cpu().numpy()
+            G = _sum_ranks(layout, _gram_pair(blocks[a], blocks[b],
+                                              gram_impl)).cpu().numpy()
             inner[offs[a]:offs[a] + G.shape[0],
                   offs[b]:offs[b] + G.shape[1]] = G
             if b != a:
@@ -834,7 +889,7 @@ def _nystrom_factor_split_colblocked(
     # of every block against an independent column dot
     probe_err = 0.0
     for a, B_a in enumerate(blocks):
-        exact = torch.sum(B_a * B_a, dim=0).cpu().numpy()
+        exact = _sum_ranks(layout, torch.sum(B_a * B_a, dim=0)).cpu().numpy()
         diag = np.diagonal(inner)[offs[a]:offs[a] + B_a.shape[1]]
         probe_err = max(probe_err, float(np.abs(diag - exact).max()))
     fired = probe_err > max(0.1 * lam, 1e-12)
@@ -843,7 +898,9 @@ def _nystrom_factor_split_colblocked(
             "colblock device Gram failed the spot check (max abs err %.2e vs "
             "lam = %.0e): recomputing inner on host from the blocks",
             probe_err, lam)
-        B_host = np.concatenate([B_c.cpu().numpy() for B_c in blocks], axis=1)
+        B_host = np.concatenate(
+            [(B_c if layout is None else layout.gather(B_c)).cpu().numpy()
+             for B_c in blocks], axis=1)
         inner = B_host.T @ B_host
     t.mark("gram_probe")
     W2 = torch.as_tensor(_host_inner_isqrt(inner, lam, "chol"),
@@ -864,17 +921,22 @@ def _chol_failed(info: torch.Tensor, out: torch.Tensor) -> bool:
 
 
 def _nystrom_factor_chol(K_nm: torch.Tensor, inducing_idxs: np.ndarray,
-                         lam: float) -> torch.Tensor:
+                         lam: float, layout=None) -> torch.Tensor:
     """The fused-Cholesky path, T (m, n): two stages, each retried up an
-    escalating jitter ladder (8 and 14 rungs)."""
-    idxs_dev = torch.as_tensor(inducing_idxs, device=K_nm.device)
+    escalating jitter ladder (8 and 14 rungs).  On a sharded layout T holds
+    this rank's columns, the Gram is all-reduced and every rank takes the
+    same rung."""
+    K_mm = _rows_at(layout, K_nm, inducing_idxs)
     B = None
     for i in range(8):
-        B, failed = _nystrom_whiten_fused(K_nm, idxs_dev, 10.0**i)
+        B, failed = _nystrom_whiten_fused(K_nm, K_mm, 10.0**i)
+        if layout is not None:
+            failed = layout.shard.any(failed)
         if not failed:
             break
         log.warning("nystrom whiten failed at jitter boost 1e%d; escalating", i)
-    inner = _nystrom_inner_gram(B)   # the expensive (m^2 n) Gram, once
+    # the expensive (m^2 n) Gram, once
+    inner = _sum_ranks(layout, _nystrom_inner_gram(B))
     G = None
     for i in range(14):
         # fine ladder: the retries repeat only the (m, m) factorization, and
@@ -888,13 +950,12 @@ def _nystrom_factor_chol(K_nm: torch.Tensor, inducing_idxs: np.ndarray,
     return _trsm_fused(G, B)
 
 
-def _nystrom_whiten_fused(K_nm: torch.Tensor, idxs: torch.Tensor,
+def _nystrom_whiten_fused(K_nm: torch.Tensor, K_mm: torch.Tensor,
                           boost: float):
     """Stage 1: B = chol(K_mm + jitter)^-1 K_mn, (m, n).  Base jitter is
     1e-10 of the spectral scale (the reference also shifts the K_mm diagonal
     unconditionally, iterative_solver.py:576-579); ``boost`` multiplies it
     on retries."""
-    K_mm = K_nm[idxs]
     scale = torch.max(torch.abs(torch.diagonal(K_mm)))
     eye = torch.eye(K_mm.shape[0], dtype=K_nm.dtype, device=K_nm.device)
     L_mm, info = torch.linalg.cholesky_ex(K_mm + (scale * 1e-10 * boost) * eye)
@@ -972,7 +1033,9 @@ def nystrom_preconditioner(
     one.  The whiten and Gram products run by the build engine
     (``MLFF_BUILD_GEMM``, ``_build_mode``).
     ``use_E_cstr``: the columns span the energy-constrained system (n + N
-    rows); the inducing columns stay force columns.
+    rows); the inducing columns stay force columns.  On a row-sharded cache
+    the result is sharded (module docstring); the column-block switch
+    decides on the global factor size, as every rank must.
     """
     if method not in ("chol_host", "eigh", "chol"):
         raise ValueError(f"unknown nystrom method {method!r}")
@@ -980,19 +1043,21 @@ def nystrom_preconditioner(
         raise ValueError(f"unknown apply_impl {apply_impl!r}")
     _build_mode()          # an unknown MLFF_BUILD_GEMM raises before work
     inducing_idxs = np.sort(np.asarray(inducing_idxs))
+    layout = knl.vector_layout(cache, use_E_cstr)
     ceiling = post_d2h_ceiling_bytes()
-    factor_bytes = cache.n * len(inducing_idxs) * 8
+    n = cache.n_global
+    factor_bytes = n * len(inducing_idxs) * 8
     if (block_cols is None and ceiling is not None
             and factor_bytes > 0.9 * ceiling
             and method in ("chol_host", "eigh") and apply_impl == "xla"):
         # past the per-buffer ceiling: store B as column blocks, of a width
         # on the JAX package's 512-column grid
-        width = int(0.45 * ceiling / (cache.n * 8)) // 512 * 512
+        width = int(0.45 * ceiling / (n * 8)) // 512 * 512
         block_cols = max(512, width)
         log.info(
             "Nystrom factor (n=%d, m=%d, %.1f GB) exceeds the %.1f GB "
             "per-buffer post-d2h ceiling — using column blocks of %d",
-            cache.n, len(inducing_idxs), factor_bytes / 1e9,
+            n, len(inducing_idxs), factor_bytes / 1e9,
             ceiling / 1e9, block_cols)
     t0 = time.perf_counter()
     if block_cols is not None:
@@ -1003,15 +1068,16 @@ def nystrom_preconditioner(
                 f"apply_impl {apply_impl!r} unsupported with column blocks")
         Bs, W2, info = _nystrom_factor_split_colblocked(
             spec, cache, inducing_idxs, lam, rank_tol, block_cols,
-            use_E_cstr=use_E_cstr)
+            use_E_cstr=use_E_cstr, layout=layout)
         Bs, W2 = _pad_colblocks(Bs, W2)
         info = dict(info, factorization_s=time.perf_counter() - t0)
         log.info("nystrom build (colblock x%d): %.2fs", len(Bs),
                  info["factorization_s"])
         if apply_impl == "df64":
-            return df64_from_colblocks(Bs, W2, lam, info)
+            return df64_from_colblocks(Bs, W2, lam, info, layout=layout)
         return WoodburyColBlockPreconditioner(
-            Bs=Bs, W2=W2, lam=float(lam), info=dict(info, apply_impl="xla"))
+            Bs=Bs, W2=W2, lam=float(lam), info=dict(info, apply_impl="xla"),
+            layout=layout)
     if use_E_cstr:
         K_nm = knl.assemble_columns_ecstr(spec, cache, inducing_idxs)
     else:
@@ -1020,15 +1086,18 @@ def nystrom_preconditioner(
         torch.cuda.synchronize(cache.device)
     t1 = time.perf_counter()
     if method == "chol":
-        T = _pad_factor_rows(_nystrom_factor_chol(K_nm, inducing_idxs, lam))
+        T = _pad_factor_rows(_nystrom_factor_chol(K_nm, inducing_idxs, lam,
+                                                  layout))
         info = {"columns_s": t1 - t0, "apply_impl": "xla",
                 "factorization_s": time.perf_counter() - t1}
         log.info("nystrom build (chol): columns %.2fs, factorization %.2fs",
                  info["columns_s"], info["factorization_s"])
-        return WoodburyPreconditioner(T=T, lam=float(lam), info=info)
+        return WoodburyPreconditioner(T=T, lam=float(lam), info=info,
+                                      layout=layout)
     B, W2, info = _nystrom_factor_split(
         K_nm, inducing_idxs, lam, rank_tol,
-        host_decomp="chol" if method == "chol_host" else "eigh")
+        host_decomp="chol" if method == "chol_host" else "eigh",
+        layout=layout)
     del K_nm
     B, W2 = _pad_split(B, W2)
     info = dict(info, columns_s=t1 - t0,
@@ -1036,14 +1105,11 @@ def nystrom_preconditioner(
     log.info("nystrom build (%s): columns %.2fs, factorization %.2fs",
              method, info["columns_s"], info["factorization_s"])
     P = WoodburySplitPreconditioner(B=B, W2=W2, lam=float(lam),
-                                    info=dict(info, apply_impl="xla"))
+                                    info=dict(info, apply_impl="xla"),
+                                    layout=layout)
     del B
     if apply_impl == "df64":
-        # the JAX package's rule, kept verbatim so that the same task builds
-        # the same operator: 3 components unless the conversion transient
-        # (f64 B + three f32 slices, ~20 bytes per element) passes 8 GB
-        comps = 3 if P.B.numel() * 20 < int(8e9) else 2
-        P = df64_from_split(P, components=comps)
+        P = df64_from_split(P, components=df64_components(P))
     elif apply_impl == "ozaki":
         P = ozaki_from_split(P)
     return P
@@ -1065,9 +1131,11 @@ def leverage_scores(
     """Approximate ridge leverage scores for all n columns (reference
     `_lev_scores`, iterative_solver.py:447-552): sample
     m = max(1, n_ind//4)*dim_i columns, and take the column sums-of-squares
-    of the Nyström factor T = (B B^T + lam I)^-1/2 B.
+    of the Nyström factor T = (B B^T + lam I)^-1/2 B.  On a row-sharded
+    cache every rank draws the same columns and gets the whole score vector.
     Returns (lev_scores, argsort(lev_scores))."""
-    n = cache.n_train * spec.dim_i
+    n = cache.n_train_global * spec.dim_i
+    layout = knl.vector_layout(cache)
     dim_m = max(1, n_inducing_pts // 4) * spec.dim_i
 
     if idxs_ordered_by_lev_score is None:
@@ -1081,8 +1149,9 @@ def leverage_scores(
     K_nm = knl.assemble_columns(spec, cache, lev_approx_idxs)  # (n, m)
     t1 = time.perf_counter()
     T = _nystrom_factor_eigh(K_nm, lev_approx_idxs, lam, rank_tol=1e-10,
-                             host_decomp="chol")
-    lev = torch.sum(T * T, dim=0).cpu().numpy()
+                             host_decomp="chol", layout=layout)
+    lev = torch.sum(T * T, dim=0)
+    lev = (lev if layout is None else layout.gather(lev)).cpu().numpy()
     log.info("lev scores (m=%d): columns %.2fs, factor+scores %.2fs",
              len(lev_approx_idxs), t1 - t0, time.perf_counter() - t1)
     return lev, np.argsort(lev)
@@ -1131,7 +1200,7 @@ def rank_k_leverage_scores(
     """Rank-k subspace leverage scores from a full SVD of K
     (reference `_rank_k_leverage_scores`, iterative_solver.py:1110-1175;
     Def. 1 of arXiv:2201.07017).  Small-n diagnostic: materializes K."""
-    _guard_dense_diagnostic("rank_k_lev_scores", cache.n)
+    _guard_dense_diagnostic("rank_k_lev_scores", cache.n_global)
     U, _, _ = torch.linalg.svd(knl.assemble_full(spec, cache))
     return torch.linalg.norm(U[:, :k], dim=1).cpu().numpy()
 
@@ -1194,22 +1263,29 @@ def eigvec_preconditioner(
     extended matrix, iterative_solver.py:1241-1252): 'block_diagonal' keeps
     each point's force block, its force-to-own-energy coupling and the
     energy diagonal; 'atomic_interactions' the atomic 3x3 blocks and the
-    energy diagonal.
+    energy diagonal.  On a row-sharded cache the dense kernel and its SVD
+    are formed on every rank (replicated), and the factor keeps this rank's
+    rows.
     """
     key = ("svd", variant, use_E_cstr)
     if svd_cache is not None and key in svd_cache:
         U, s = svd_cache[key]
     else:
         _guard_dense_diagnostic(
-            variant, cache.n + (cache.n_train if use_E_cstr else 0))
+            variant, cache.n_global + (cache.n_train_global if use_E_cstr
+                                       else 0))
         K = (knl.assemble_full_ecstr(spec, cache) if use_E_cstr
              else knl.assemble_full(spec, cache))
-        K = _masked_kernel(K, variant, spec.dim_i, cache.n)
+        K = _masked_kernel(K, variant, spec.dim_i, cache.n_global)
         U, s, _ = torch.linalg.svd(K)
         if svd_cache is not None:
             svd_cache[key] = (U, s)
     L = U[:, :k] * torch.sqrt(s[:k])[None, :]
-    return woodbury_from_factor(L, lam)
+    # (a memoized SVD may come without a cache)
+    layout = None if cache is None else knl.vector_layout(cache, use_E_cstr)
+    if layout is not None:
+        L = L[torch.as_tensor(layout.local_index(), device=L.device)]
+    return woodbury_from_factor(L, lam, layout)
 
 
 def jacobi_preconditioner(diag: torch.Tensor, lam: float):

@@ -34,7 +34,10 @@ products are exact on the card at the 2^24 bound (+-256 digits over
 precision engines raises with TF32 on; the Ozaki matvec and apply on the
 card are held to the port's CPU result on the same bits within 1e-15 of
 the norm (the digit products are exact; the f64 parts round in another
-order).
+order).  The row-sharded operator runs on a one-rank NCCL group in this
+process: its matvec equals the unsharded one to 1e-12 and its Nystrom
+apply (f64 and df64) to 1e-10; a gloo group stages CUDA tensors through
+host memory and gives them back on the card.
 """
 
 import numpy as np
@@ -592,3 +595,82 @@ def test_ozaki_apply_on_card_matches_cpu(small):
     want, got = out
     assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) \
         <= 1e-15
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(small, tmp_path_factory):
+    """A one-rank NCCL group in this process (file store), torn down after
+    the module: the row-sharded operator's real collectives on CUDA
+    tensors, with one card."""
+    import torch.distributed as dist
+
+    from mlff_tpu_torch.parallel import distributed as pdist
+    from mlff_tpu_torch.parallel import mesh as pmesh
+
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    pdist.init_distributed(backend="nccl", init_method=f"file://{store}",
+                           world_size=1, rank=0)
+    yield pmesh.make_mesh()
+    dist.destroy_process_group()
+
+
+def test_one_rank_nccl_sharded_matvec_matches_unsharded(nccl_mesh):
+    """The sharded matvec through NCCL's all-gather equals the unsharded
+    one (one rank: the same rows, the same sums)."""
+    from mlff_tpu_torch.parallel import mesh as pmesh
+
+    spec, c_gpu, _ = _random_caches()
+    sh = pmesh.shard_cache(c_gpu, nccl_mesh)
+    assert sh.shard.backend == "nccl" and sh.shard.world == 1
+    v = torch.as_tensor(np.random.default_rng(9).normal(size=c_gpu.n),
+                        device="cuda")
+    calls = pmesh.STATS["calls"]
+    got = knl.matvec_psd(sh, pmesh.shard_vector(v, nccl_mesh))
+    assert got.is_cuda and pmesh.STATS["calls"] == calls + 1
+    assert _rel_err(got, knl.matvec_psd(c_gpu, v)) <= 1e-12
+
+
+@pytest.mark.parametrize("apply_impl", ["xla", "df64"])
+def test_one_rank_nccl_sharded_apply_matches_unsharded(nccl_mesh,
+                                                       apply_impl):
+    """A Nystrom preconditioner built on the sharded cache (all-reduced
+    Gram, K_mm gathered from its owner) applies as the unsharded one; the
+    df64 form launches both kernels on its row slice."""
+    from mlff_tpu_torch.parallel import mesh as pmesh
+    from mlff_tpu_torch.solvers import preconditioners as tpc
+
+    spec, c_gpu, _ = _random_caches()
+    idxs = np.sort(np.random.default_rng(3).choice(c_gpu.n, 40,
+                                                   replace=False))
+    v = torch.as_tensor(np.random.default_rng(4).normal(size=c_gpu.n),
+                        device="cuda")
+    P = tpc.nystrom_preconditioner(spec, c_gpu, idxs, 1e-10,
+                                   apply_impl=apply_impl)
+    P_sh = tpc.nystrom_preconditioner(
+        spec, pmesh.shard_cache(c_gpu, nccl_mesh), idxs, 1e-10,
+        apply_impl=apply_impl)
+    assert P_sh.layout is not None
+    assert not P_sh.info["gram_guard_fired"]
+    before = (df64_gemv.df64_bt_v.launches, df64_gemv.df64_b_x.launches)
+    got = P_sh(v)
+    torch.cuda.synchronize()
+    if apply_impl == "df64":
+        assert df64_gemv.df64_bt_v.launches == before[0] + 1
+        assert df64_gemv.df64_b_x.launches == before[1] + 1
+    assert _rel_err(got, P(v)) <= 1e-10
+
+
+def test_gloo_group_stages_cuda_tensors(nccl_mesh):
+    """A gloo group takes CUDA tensors through host memory: the results
+    come back on the card, equal."""
+    import torch.distributed as dist
+
+    from mlff_tpu_torch.parallel import mesh as pmesh
+
+    sh = pmesh.RowShard(dist.new_group(backend="gloo"))
+    assert sh.backend == "gloo"
+    t = torch.arange(6, dtype=torch.float64, device="cuda")
+    got = sh.gather(t)
+    assert got.is_cuda and torch.equal(got, t)
+    assert torch.equal(sh.all_reduce(t), t) and torch.equal(t, torch.arange(
+        6, dtype=torch.float64, device="cuda"))

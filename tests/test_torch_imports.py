@@ -35,12 +35,19 @@ def test_source_imports_no_jax(source):
 
 
 def test_importing_the_port_loads_no_jax():
+    """Nor matplotlib, which the card's machine lacks: the figure modules
+    import it when they draw."""
     code = ("import sys\n"
             "import mlff_tpu_torch.models.gdml, mlff_tpu_torch.convert\n"
             "import mlff_tpu_torch.data.synthetic, mlff_tpu_torch.models.task\n"
             "import mlff_tpu_torch.cli, mlff_tpu_torch.experiments.harness\n"
+            "import mlff_tpu_torch.parallel.mesh\n"
+            "import mlff_tpu_torch.parallel.distributed\n"
+            "import mlff_tpu_torch.experiments.prototypes\n"
+            "import mlff_tpu_torch.experiments.plotting\n"
+            "import mlff_tpu_torch.experiments.visualize\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'mlff_tpu')]\n"
+            "('jax', 'jaxlib', 'mlff_tpu', 'matplotlib')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
@@ -48,7 +55,8 @@ def test_importing_the_port_loads_no_jax():
 
 @pytest.mark.parametrize("entry", ["Trainer", "Predictor", "build_cache",
                                    "cli.main", "evaluate", "cg_steps",
-                                   "train_model"])
+                                   "train_model", "gp_regression",
+                                   "init_distributed"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without a card, an entry point called without device="cpu" (the CLI
     without --device cpu) raises: it never moves to the CPU on its own, and
@@ -61,7 +69,9 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
     from mlff_tpu_torch.models.evaluate import evaluate
     from mlff_tpu_torch.models.gdml import Trainer
     from mlff_tpu_torch.models.predict import Predictor
+    from mlff_tpu_torch.experiments.prototypes import gp_regression
     from mlff_tpu_torch.ops.kernel import build_cache
+    from mlff_tpu_torch.parallel.distributed import init_distributed
 
     call = {"Trainer": lambda: Trainer(),
             "Predictor": lambda: Predictor({"z": [1, 1]}),
@@ -71,7 +81,10 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
                                           "--task-dir", str(tmp_path / "t")]),
             "evaluate": lambda: evaluate({"z": [1, 1]}, {}),
             "cg_steps": lambda: cg_steps({}, "lev_random", 0.1),
-            "train_model": lambda: train_model({}, 10, "cg")}[entry]
+            "train_model": lambda: train_model({}, 10, "cg"),
+            "gp_regression": lambda: gp_regression([[0.0]], [0.0], [[0.0]]),
+            # the default backend follows the default device
+            "init_distributed": lambda: init_distributed(world_size=2)}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
     assert not list(tmp_path.iterdir())

@@ -420,7 +420,8 @@ def test_cho_factor_stable_on_indefinite():
 @pytest.mark.parametrize("family", ["rank_k", "eigvec"])
 def test_dense_diagnostic_guard(family, monkeypatch):
     spec = td.make_spec(4)
-    fake_cache = types.SimpleNamespace(n=30_000, n_train=2_500)
+    fake_cache = types.SimpleNamespace(n=30_000, n_train=2_500,
+                                       n_global=30_000, n_train_global=2_500)
     with pytest.raises(ValueError, match="small-n diagnostic"):
         if family == "rank_k":
             tpc.rank_k_leverage_scores(spec, fake_cache, 10)
