@@ -148,6 +148,20 @@ Phases, each printing one JSON line of its own numbers:
                  a second, timed run with a synchronize around each
                  collective: their milliseconds per iteration; the phase's
                  seconds
+  bench          the measurement tools at their published sizes: (a)
+                 ``python3 -m mlff_tpu_torch.tools.bench`` in a fresh process
+                 (its first-use costs real), converged, iterations within 2
+                 of train's, its value beside train's train_s; (b) the bench
+                 with BENCH_APPLY=df64 in this process (main's warm-up,
+                 then the counts set to 0, then the timed run), iterations
+                 within 2 of train_df64's, each df64 kernel launched once
+                 per iteration, at most 51 more; (c) bench_scaling
+                 (n_train 146 ... 1166), bench_time_to_solution (aspirin,
+                 calibrated), bench_k_sweep_31k (k = 1024, 2049),
+                 bench_molecule_table (ethanol, uracil), bench_nanotube
+                 (n = 31,080, cholesky_panel) and
+                 run_500k --probe (n = 503,982, 20 iterations): each
+                 converged (but the probe), every number finite
 The kernel phase also holds the fused kernel's wide route (D > 129) to its
 plain version at D = 130, 210, 3828 and 68,265 (1e-12, same bits twice)
 and times it at B = 512 at the aspirin, catcher and full-row shapes.
@@ -313,6 +327,15 @@ SHARDED_SLACK_NCCL, SHARDED_SLACK_GLOO = 1, 2
 SHARDED_ALPHA_RTOL, SHARDED_PRED_RTOL = 1e-6, 1e-8
 SHARDED_WITNESS_RTOL = 1e-13
 SHARDED_TIMEOUT_S = 300
+# bench: the measurement tools (mlff_tpu_torch/tools/).  The bench's
+# iterations against the train phase's and train_df64's (the same task: the
+# f64 rounding path of one process against another's); the df64 launches
+# of the timed run beyond one per iteration: the masked iterations of the
+# last CG chunk (50 iterations per chunk at this n, solvers/cg.py::pcg) and
+# one apply outside the loop; the subprocess's time limit
+BENCH_ITERS_SLACK = 2
+BENCH_LAUNCH_SLACK = 51
+BENCH_TIMEOUT_S = 300
 
 
 def emit(phase: str, **fields) -> None:
@@ -1857,6 +1880,123 @@ def sharded(torch, dev, task, ds, held, refs: dict) -> int:
     return launches
 
 
+def run_tool(name: str, argv: list, **kw):
+    """``mlff_tpu_torch.tools.<name>.main(argv, **kw)`` in this process:
+    (its return value, the JSON lines it printed, seconds).  Its stdout is
+    kept off this script's."""
+    import importlib
+
+    tool = importlib.import_module(f"mlff_tpu_torch.tools.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = tool.main([str(a) for a in argv], **kw)
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
+             if ln.startswith("{")]
+    return ret, lines, time.perf_counter() - t0
+
+
+def finite_numbers(obj) -> bool:
+    """Every float in a JSON value is finite (None stands for a number not
+    measured on this device)."""
+    if isinstance(obj, dict):
+        return all(finite_numbers(v) for v in obj.values())
+    if isinstance(obj, list):
+        return all(finite_numbers(v) for v in obj)
+    return not isinstance(obj, float) or bool(np.isfinite(obj))
+
+
+def bench(dev, refs: dict) -> dict:
+    """The measurement tools on the card; returns the df64 launches of the
+    bench's in-process run."""
+    t_phase = time.perf_counter()
+    # (a) the bench command in a fresh process, as a user runs it
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mlff_tpu_torch.tools.bench"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        fail(f"tools.bench exited {proc.returncode}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    emit("bench", part="a_bench", process_s=seconds,
+         train_s=refs["train"]["train_s"], train_iters=refs["train"]["iters"],
+         **line)
+    if not (line["converged"] and finite_numbers(line)
+            and abs(line["iters"] - refs["train"]["iters"])
+            <= BENCH_ITERS_SLACK):
+        fail(f"tools.bench: converged={line['converged']} in {line['iters']} "
+             f"iterations against train's {refs['train']['iters']}")
+
+    # (b) BENCH_APPLY=df64 in this process, so the launch counts see it:
+    # main's two steps, the counts set to 0 between the warm-up and the
+    # timed run
+    from mlff_tpu_torch.tools import bench as bench_tool
+
+    t0 = time.perf_counter()
+    opts = dict(bench_tool.knobs(), apply_impl="df64")
+    warmup_s = bench_tool.warmup(dev, opts["strategy"],
+                                 matvec_dtype=opts["matvec_dtype"],
+                                 apply_impl="df64")
+    launch_counts(reset=True)
+    line, _ = bench_tool.bench(dev, warmup_s=warmup_s, **opts)
+    launches = launch_counts()
+    emit("bench", part="b_bench_df64", seconds=time.perf_counter() - t0,
+         launches=launches, train_df64_iters=refs["train_df64"]["iters"],
+         **line)
+    if not (line["converged"]
+            and abs(line["iters"] - refs["train_df64"]["iters"])
+            <= BENCH_ITERS_SLACK and finite_numbers(line)):
+        fail(f"tools.bench (df64): converged={line['converged']} in "
+             f"{line['iters']} iterations against train_df64's "
+             f"{refs['train_df64']['iters']}")
+    if not all(line["iters"] <= launches[name]
+               <= line["iters"] + BENCH_LAUNCH_SLACK
+               for name in ("df64_bt_v", "df64_b_x")):
+        fail(f"tools.bench (df64): launches {launches} outside "
+             f"[{line['iters']}, {line['iters'] + BENCH_LAUNCH_SLACK}]")
+
+    # (c) the other tools at their published sizes
+    _, rows, seconds = run_tool("bench_scaling", [])
+    emit("bench", part="c_bench_scaling", seconds=seconds, rows=rows,
+         reduced=[])
+    if not (len(rows) == 4 and finite_numbers(rows)
+            and [r["n"] for r in rows] == [27 * n for n in (146, 292, 583,
+                                                            1166)]):
+        fail("bench_scaling: not one finite line per default size")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = (("bench_time_to_solution", ["--molecule", "aspirin",
+                                            "--benchmark-data"]),
+                ("bench_k_sweep_31k", ["--benchmark-data", "--ks", 1024,
+                                       2049]),
+                ("bench_molecule_table", ["ethanol", "uracil"]),
+                ("bench_nanotube", []),
+                ("run_500k", ["--probe", "--ckpt",
+                              os.path.join(tmp, "eth500k.npz")]))
+        for name, argv in runs:
+            _, lines, seconds = run_tool(name, argv)
+            line = lines[-1]
+            emit("bench", part=f"c_{name}", seconds=seconds, reduced=[],
+                 **line)
+            rows = line.get("rows", [line])
+            converged = all(r["converged"] for r in rows)
+            if not finite_numbers(line) or (name != "run_500k"
+                                            and not converged):
+                fail(f"{name}: converged={converged}, finite="
+                     f"{finite_numbers(line)}")
+            if name == "run_500k" and (
+                    line["metric"] != "time_to_solution_ethanol_n503982"
+                    or line["iters"] != 20):
+                fail(f"run_500k --probe: {line['metric']}, "
+                     f"{line['iters']} iterations")
+    emit("bench", part="summary", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def card() -> str:
     """The card's name and power limit as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -2238,6 +2378,7 @@ def main() -> None:
          gram_probe_err=info["nystrom"]["gram_probe_err"],
          nystrom_stages=info["nystrom"]["stages"])
     train_ref = dict(iters=int(model["solver_iters"]), lam=float(model["lam"]),
+                     train_s=train_s,
                      inducing=np.asarray(model["inducing_pts_idxs"]),
                      factorization_s=info["nystrom"]["factorization_s"],
                      gram_probe_err=info["nystrom"]["gram_probe_err"])
@@ -2370,6 +2511,10 @@ def main() -> None:
         "train_df64": df64_refs["train_df64"],
         "train_catcher": large_refs["train_catcher"], "mae": mae_xla})
 
+    # -- bench: the measurement tools -----------------------------------------
+    bench_launches = bench(dev, {"train": train_ref,
+                            "train_df64": df64_refs["train_df64"]})
+
     full = fused_rows["full"]
     kernels = [{
         "name": "fused_predict", "route": "cuda",
@@ -2409,6 +2554,7 @@ def main() -> None:
             "launches_train_ecstr_df64": ecstr["df64"][name],
             "launches_train_ecstr_colblock": ecstr["colblock"][name],
             "launches_sharded_df64": sharded_launches[name],
+            "launches_bench_df64": bench_launches[name],
             **{f"{label}_shape": {k: df64_rows[(name, label)][k] for k in (
                 "n", "m", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "library_ms", "share_of_bound")}

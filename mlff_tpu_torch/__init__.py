@@ -59,3 +59,24 @@ def synchronize(device: torch.device) -> None:
     device work end with this."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def __getattr__(name):
+    """Lazy top-level API, the names of ``mlff_tpu``'s (keeps ``import
+    mlff_tpu_torch`` light)."""
+    if name == "Trainer":
+        from .models.gdml import Trainer
+        return Trainer
+    if name == "Predictor":
+        from .models.predict import Predictor
+        return Predictor
+    if name == "create_task":
+        from .models.task import create_task
+        return create_task
+    if name == "make_dataset":
+        from .data.synthetic import make_dataset
+        return make_dataset
+    if name == "evaluate":
+        from .models.evaluate import evaluate
+        return evaluate
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

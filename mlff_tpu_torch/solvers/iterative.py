@@ -37,6 +37,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import synchronize
 from ..ops import kernel as knl
 from ..ops.descriptor import DescriptorSpec
 from ..utils.log import get_logger
@@ -186,6 +187,9 @@ def build_preconditioner(
     else:
         raise NotImplementedError(f"str_preconditioner = {strategy!r}")
 
+    # the build's tail may still be queued on the device: charge it here,
+    # not to the CG loop that would wait for it
+    synchronize(cache.device)
     info["total_time_preconditioner"] = time.perf_counter() - t0
     info["total_time_cholesky"] = info["total_time_preconditioner"]
     return P, inducing, info

@@ -465,6 +465,41 @@ def test_df64_apply_of_a_cholesky_factor_launches_both_kernels(small):
     assert _rel_err(got, P64(v)) <= DF64_RTOL
 
 
+def test_preconditioner_time_covers_the_device_work_it_queued(
+        small, monkeypatch):
+    """A device spin of known length queued as the build's last work is
+    charged to ``total_time_preconditioner``: the build's clock stops on a
+    synchronized device, not when the host has queued the work.  A first
+    build pays the first-use costs, and the same build without the spin
+    must take far less than the spin, or the check could not tell."""
+    spec, c_gpu, _ = _random_caches()
+
+    def build_s():
+        _, _, info = tit.build_preconditioner(
+            spec, c_gpu, "cholesky", 40, 1e-10, np.random.default_rng(7))
+        return info["total_time_preconditioner"]
+
+    build_s()
+    plain_s = build_s()
+    cycles = 1_000_000_000
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    spin_s = start.elapsed_time(end) / 1e3
+    woodbury = tit.pc.woodbury_from_factor
+
+    def woodbury_then_spin(*args, **kwargs):
+        P = woodbury(*args, **kwargs)
+        torch.cuda._sleep(cycles)
+        return P
+
+    monkeypatch.setattr(tit.pc, "woodbury_from_factor", woodbury_then_spin)
+    assert plain_s < 0.5 * spin_s
+    assert build_s() >= 0.9 * spin_s
+
+
 def test_constrained_matvec_and_blocks_on_card_match_cpu(small):
     spec, c_gpu, c_cpu = _random_caches()
     n_ext = c_cpu.n + c_cpu.n_train

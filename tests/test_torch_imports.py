@@ -3,6 +3,8 @@
 on the card unless the caller asks for the CPU."""
 
 import ast
+import functools
+import importlib
 import subprocess
 import sys
 from pathlib import Path
@@ -16,6 +18,12 @@ SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in
                  [*(ROOT / "mlff_tpu_torch").rglob("*.py"),
                   ROOT / "chip_smoke.py"])
 FORBIDDEN = ("jax", "jaxlib", "mlff_tpu")
+# the measurement tools' command lines, without --device
+TOOL_ARGV = {"bench": [], "bench_time_to_solution": [],
+             "bench_k_sweep_31k": [], "bench_scaling": [],
+             "bench_molecule_table": ["ethanol"], "bench_nanotube": [],
+             "run_500k": ["--probe"]}
+LAZY_API = ("Trainer", "Predictor", "create_task", "make_dataset", "evaluate")
 
 
 def _imported_roots(tree: ast.AST):
@@ -46,6 +54,13 @@ def test_importing_the_port_loads_no_jax():
             "import mlff_tpu_torch.experiments.prototypes\n"
             "import mlff_tpu_torch.experiments.plotting\n"
             "import mlff_tpu_torch.experiments.visualize\n"
+            "import mlff_tpu_torch.tools.bench\n"
+            "import mlff_tpu_torch.tools.bench_time_to_solution\n"
+            "import mlff_tpu_torch.tools.bench_k_sweep_31k\n"
+            "import mlff_tpu_torch.tools.bench_scaling\n"
+            "import mlff_tpu_torch.tools.bench_molecule_table\n"
+            "import mlff_tpu_torch.tools.bench_nanotube\n"
+            "import mlff_tpu_torch.tools.run_500k\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mlff_tpu', 'matplotlib')]\n"
             "assert not bad, bad\n")
@@ -56,7 +71,13 @@ def test_importing_the_port_loads_no_jax():
 @pytest.mark.parametrize("entry", ["Trainer", "Predictor", "build_cache",
                                    "cli.main", "evaluate", "cg_steps",
                                    "train_model", "gp_regression",
-                                   "init_distributed"])
+                                   "init_distributed", "tools.bench",
+                                   "tools.bench_time_to_solution",
+                                   "tools.bench_k_sweep_31k",
+                                   "tools.bench_scaling",
+                                   "tools.bench_molecule_table",
+                                   "tools.bench_nanotube",
+                                   "tools.run_500k"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without a card, an entry point called without device="cpu" (the CLI
     without --device cpu) raises: it never moves to the CPU on its own, and
@@ -84,7 +105,36 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
             "train_model": lambda: train_model({}, 10, "cg"),
             "gp_regression": lambda: gp_regression([[0.0]], [0.0], [[0.0]]),
             # the default backend follows the default device
-            "init_distributed": lambda: init_distributed(world_size=2)}[entry]
+            "init_distributed": lambda: init_distributed(world_size=2),
+            # each measurement tool, run as its command line runs it
+            **{f"tools.{name}": functools.partial(
+                importlib.import_module(f"mlff_tpu_torch.tools.{name}").main,
+                argv) for name, argv in TOOL_ARGV.items()}}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
     assert not list(tmp_path.iterdir())
+
+
+def test_importing_the_package_loads_no_module_of_it():
+    """The lazy top-level API keeps ``import mlff_tpu_torch`` light."""
+    code = ("import sys\n"
+            "import mlff_tpu_torch\n"
+            "bad = [m for m in sys.modules if m.startswith('mlff_tpu_torch.')]\n"
+            "assert not bad, bad\n"
+            "assert callable(mlff_tpu_torch.Trainer)\n"
+            "assert 'mlff_tpu_torch.models.gdml' in sys.modules\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+@pytest.mark.parametrize("name", LAZY_API)
+def test_lazy_api_names_the_reference_objects(name):
+    import mlff_tpu
+    import mlff_tpu_torch
+
+    ported, reference = getattr(mlff_tpu_torch, name), getattr(mlff_tpu, name)
+    assert ported.__name__ == reference.__name__ == name
+    assert ported.__module__ == reference.__module__.replace(
+        "mlff_tpu.", "mlff_tpu_torch.", 1)
+    with pytest.raises(AttributeError):
+        getattr(mlff_tpu_torch, "no_such_name")

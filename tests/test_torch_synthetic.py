@@ -15,8 +15,12 @@ from mlff_tpu.data import synthetic as js
 from mlff_tpu_torch.data import synthetic as ts
 
 # (molecule, n_train selecting the calibration entry): the card phases'
+# and the measurement tools' (``mlff_tpu_torch/tools/``): run_500k's 18,666,
+# bench_time_to_solution's aspirin and bench_molecule_table's uracil at
+# n ~ 31,400
 BENCHMARKS = [("ethanol", 1166), ("ethanol", 5833), ("aspirin", 250),
-              ("catcher", 119), ("nanotube", 14)]
+              ("catcher", 119), ("nanotube", 14), ("ethanol", 18666),
+              ("aspirin", 498), ("uracil", 872)]
 
 
 def _assert_same(a: dict, b: dict):
