@@ -84,7 +84,10 @@ Phases, each printing one JSON line of its own numbers:
   benchmark_models  train_model analytic and cg (the rule-of-thumb k) on
                  cli_all's data, evaluate on 100 test points, forces within
                  5e-3 of max |F|; the analytic solve's peak device memory
-                 with the ridge on K's diagonal against a dense identity
+                 with the ridge on K's diagonal against a dense identity;
+                 then the crossover rows at N_train 1750 and 2300 (n =
+                 47,250 and 62,100, P = 1): both runtimes, their ratio and
+                 the solve's peak, cg converged
   train_ecstr    energy-constrained training (use_E_cstr) of the train
                  phase's task: n + N = 31,482 + 1,166 = 32,648, k = 1536,
                  lev_random to tol 1e-4, with (a) the f64 apply, (b)
@@ -162,6 +165,24 @@ Phases, each printing one JSON line of its own numbers:
                  (n = 31,080, cholesky_panel) and
                  run_500k --probe (n = 503,982, 20 iterations): each
                  converged (but the probe), every number finite
+  profile        the per-layer timing tools at their defaults:
+                 time_chunk_parts (also at the main task's shapes, n =
+                 31,482, P = 6, k = 1536, with the f64 and the df64
+                 apply), time_cg_iter, time_matvec, time_woodbury_apply (also
+                 at 31,482 x 1536), time_woodbury_f32, exp_f32_apply,
+                 time_factorization, time_nanotube_iter, time_ozaki_matvec,
+                 time_ozaki_loop, time_otf_parts; one line per run with the
+                 tool's lines.  Fails unless every number is finite, every
+                 torch.profiler reading has a busy share in (0, 1] and busy
+                 time within 1.05 x the CUDA events' window, each
+                 time_chunk_parts split of the device's busy time (matvec +
+                 apply + vector ops) and, at the main task's shapes, of the
+                 loop's time adds up to the full iteration within 25%,
+                 under the df64 apply each df64 kernel runs once per
+                 iteration by the profiler and by its wrapper's count, the
+                 Ozaki matvec is within
+                 1e-12 of f64, and a reduced-precision solve that reports
+                 convergence has a true residual within 1.3e-4
 The kernel phase also holds the fused kernel's wide route (D > 129) to its
 plain version at D = 130, 210, 3828 and 68,265 (1e-12, same bits twice)
 and times it at B = 512 at the aspirin, catcher and full-row shapes.
@@ -272,6 +293,12 @@ CLI_SIGS = ("10", "20")
 CLI_BREAK = repr(K_COLUMNS / (27 * N_TRAIN))
 # the card against the CPU: the reference phase's limits
 CLI_ITERS_SLACK, CLI_MAE_RTOL = 2, 1e-4
+# benchmark_models' crossover rows (ROADMAP item 15): analytic against PCG
+# at N_train 1750 and 2300 (n = 47,250 and 62,100, P = 1), on calibrated
+# ethanol of N_train + 300 samples (train_model's 200 validation points).
+# The dense solve's peak is ~2.02 x 8 n^2 (16.03 GB at 31,482): ~36 and
+# ~62 GB, inside the card's 80 GB
+CROSSOVER_N_TRAIN, CROSSOVER_EXTRA = (1750, 2300), 300
 # the k-sweep: it brackets the rule of thumb's k = 2049 at n = 31,482
 ROT_KS = (256, 512, 1024, 1536, 2048, 3072)
 # tests/test_golden_archived.py::test_archived_cg_curves_are_monotone_decreasing
@@ -336,6 +363,45 @@ SHARDED_TIMEOUT_S = 300
 BENCH_ITERS_SLACK = 2
 BENCH_LAUNCH_SLACK = 51
 BENCH_TIMEOUT_S = 300
+# profile: the per-layer timing tools (mlff_tpu_torch/tools/time_*,
+# exp_f32_apply), each at its defaults, and time_chunk_parts also at the
+# main task's shapes with the f64 and the df64 apply: (label, tool, argv).
+# The split of an iteration into matvec, apply and vector ops must add up
+# to the whole within PROFILE_SUM_RTOL (the loop's time on MAIN_CHUNK_RUNS
+# only, below; the device's busy time on every run); the profiler's busy
+# time may pass the events' window by PROFILE_BUSY_SLACK (two clocks); the
+# Ozaki matvec and a reduced-precision solve's convergence are held to
+# precision's limits
+MAIN_SHAPES = ["--n-train", N_TRAIN, "--k", K_COLUMNS, "--perms"]
+PROFILE_RUNS = (
+    ("chunk_parts", "time_chunk_parts", []),
+    ("chunk_parts_main_xla", "time_chunk_parts",
+     MAIN_SHAPES + ["--apply-impl", "xla"]),
+    ("chunk_parts_main_df64", "time_chunk_parts",
+     MAIN_SHAPES + ["--apply-impl", "df64"]),
+    ("cg_iter", "time_cg_iter", []),
+    ("matvec", "time_matvec", []),
+    ("woodbury_apply", "time_woodbury_apply", []),
+    ("woodbury_apply_main", "time_woodbury_apply",
+     ["--n", 31482, "--m", K_COLUMNS]),
+    ("woodbury_f32", "time_woodbury_f32", []),
+    ("f32_apply", "exp_f32_apply", []),
+    ("factorization", "time_factorization", []),
+    ("nanotube_iter", "time_nanotube_iter", []),
+    ("ozaki_matvec", "time_ozaki_matvec", []),
+    ("ozaki_loop", "time_ozaki_loop", []),
+    ("otf_parts", "time_otf_parts", []),
+)
+PROFILE_SUM_RTOL, PROFILE_BUSY_SLACK = 0.25, 1.05
+# the main task's runs, whose loop-time split is held to PROFILE_SUM_RTOL:
+# there the loop is host-bound in every case, so the cases' host times add
+# up (1.07 and 1.00 of the whole on an NVIDIA H100 80GB HBM3 at 700 W,
+# PERF.md section 6).  At the root's default shape the apply is
+# device-bound and the matvec host-bound: in the full loop the matvec's
+# launches hide under the apply's device time, so the parts overlap (1.18
+# and 1.26 of the whole on that card).  There, as on every run, the
+# device's busy time is split and held
+MAIN_CHUNK_RUNS = ("chunk_parts_main_xla", "chunk_parts_main_df64")
 
 
 def emit(phase: str, **fields) -> None:
@@ -1277,26 +1343,61 @@ def rule_of_thumb(task: dict, train_iters: int, tmp: str) -> None:
         fail(f"rule_of_thumb: the iteration curve {list(s)} does not fall")
 
 
+def analytic_solve_peak(torch, dev, ds_all: dict, n_train: int) -> tuple:
+    """(alphas, seconds, peak GB above the kernel cache, spec, cache, y) of
+    the analytic solve alone on benchmark_models' task at ``n_train``."""
+    from mlff_tpu_torch.models.gdml import Trainer
+    from mlff_tpu_torch.models.task import create_task
+    from mlff_tpu_torch.ops import kernel as knl
+    from mlff_tpu_torch.solvers import analytic as an
+
+    task = create_task(ds_all, n_train, ds_all,
+                       n_valid=min(200, ds_all["R"].shape[0] - n_train - 1),
+                       sig=SIG, solver="analytic")
+    tr = Trainer(device=dev)
+    spec, S, X, Jc, P_idx = tr.build_kernel_inputs(task)
+    y, _, _ = tr.labels(task)
+    cache = knl.build_cache(X, Jc, S, P_idx, SIG, float(task["lam"]),
+                            device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    alphas = an.solve_analytic(spec, cache, y)
+    solve_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    return alphas, solve_s, peak, spec, cache, y
+
+
+def analytic_against_cg(torch, ds_all: dict, n_train: int) -> tuple:
+    """(analytic model, cg model, peak GB of the analytic training) of
+    experiments.benchmark_models.train_model at ``n_train``."""
+    from mlff_tpu_torch.experiments import benchmark_models as bm
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m_an = bm.train_model(ds_all, n_train, "analytic")
+    peak_train_an = torch.cuda.max_memory_allocated() / 1e9
+    m_cg = bm.train_model(ds_all, n_train, "cg")
+    return m_an, m_cg, peak_train_an
+
+
 def benchmark_models(torch, dev, ds_all: dict) -> None:
     """Analytic against PCG at the rule-of-thumb k on cli_all's data
     through experiments.benchmark_models.train_model, both models' test
     errors by evaluate, and the analytic solve's peak device memory with
-    the ridge on K's diagonal against K + reg * I formed with an identity."""
-    from mlff_tpu_torch.experiments import benchmark_models as bm
+    the ridge on K's diagonal against K + reg * I formed with an identity.
+    Then the crossover rows: the same two trainings and the solve's peak at
+    CROSSOVER_N_TRAIN, on calibrated ethanol of that size."""
+    from mlff_tpu_torch.data.synthetic import make_benchmark_dataset
     from mlff_tpu_torch.models.evaluate import evaluate
-    from mlff_tpu_torch.models.gdml import Trainer
     from mlff_tpu_torch.models.predict import Predictor
-    from mlff_tpu_torch.models.task import create_task
     from mlff_tpu_torch.ops import kernel as knl
     from mlff_tpu_torch.solvers import analytic as an
     from mlff_tpu_torch.utils.sampling import draw_strat_sample
 
     launch_counts(reset=True)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    m_an = bm.train_model(ds_all, N_TRAIN, "analytic")
-    peak_train_an = torch.cuda.max_memory_allocated() / 1e9
-    m_cg = bm.train_model(ds_all, N_TRAIN, "cg")
+    m_an, m_cg, peak_train_an = analytic_against_cg(torch, ds_all, N_TRAIN)
     err_an = evaluate(m_an, ds_all, n_points=100)
     err_cg = evaluate(m_cg, ds_all, n_points=100)
     counts = launch_counts()
@@ -1310,21 +1411,9 @@ def benchmark_models(torch, dev, ds_all: dict) -> None:
 
     # the analytic solve alone: peak memory above the kernel cache, with the
     # ridge added to K's diagonal, then with the dense identity
-    task = create_task(ds_all, N_TRAIN, ds_all,
-                       n_valid=min(200, ds_all["R"].shape[0] - N_TRAIN - 1),
-                       sig=SIG, solver="analytic")
-    tr = Trainer(device=dev)
-    spec, S, X, Jc, P_idx = tr.build_kernel_inputs(task)
-    y, _, _ = tr.labels(task)
-    cache = knl.build_cache(X, Jc, S, P_idx, SIG, float(task["lam"]),
-                            device=dev)
-    torch.cuda.synchronize()
+    alphas, solve_s, peak_diag, spec, cache, y = analytic_solve_peak(
+        torch, dev, ds_all, N_TRAIN)
     base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    alphas = an.solve_analytic(spec, cache, y)
-    solve_s = time.perf_counter() - t0
-    peak_diag = (torch.cuda.max_memory_allocated() - base) / 1e9
     torch.cuda.reset_peak_memory_stats()
     K = knl.assemble_full(spec, cache)
     A = K + an.ANALYTIC_REG * torch.eye(K.shape[0], dtype=K.dtype, device=dev)
@@ -1332,7 +1421,7 @@ def benchmark_models(torch, dev, ds_all: dict) -> None:
     y_dev = torch.as_tensor(y, dtype=torch.float64, device=dev)
     alphas_eye = torch.cholesky_solve(y_dev[:, None], L)[:, 0].cpu().numpy()
     peak_eye = (torch.cuda.max_memory_allocated() - base) / 1e9
-    del K, A, L, cache, X, Jc, S
+    del K, A, L, cache
     torch.cuda.empty_cache()
     alpha_err = float(np.abs(alphas - alphas_eye).max()
                       / np.abs(alphas_eye).max())
@@ -1363,6 +1452,38 @@ def benchmark_models(torch, dev, ds_all: dict) -> None:
     if not alpha_err <= 1e-12:
         fail("benchmark_models: the ridge on K's diagonal changed the "
              "analytic coefficients")
+
+    # the crossover rows: where does PCG overtake the dense solve?
+    for n_train in CROSSOVER_N_TRAIN:
+        t0 = time.perf_counter()
+        ds_big, _ = make_benchmark_dataset(
+            "ethanol", n_samples=n_train + CROSSOVER_EXTRA, seed=11,
+            n_train=n_train)
+        m_an, m_cg, peak_train_an = analytic_against_cg(torch, ds_big,
+                                                        n_train)
+        _, solve_s, peak, _, cache, _ = analytic_solve_peak(
+            torch, dev, ds_big, n_train)
+        del cache
+        torch.cuda.empty_cache()
+        n = 27 * n_train
+        row = dict(n=n, n_train=n_train, P=int(m_an["perms"].shape[0]),
+                   runtime_analytic_s=float(m_an["solver_runtime_s"]),
+                   runtime_cg_s=float(m_cg["solver_runtime_s"]),
+                   speedup=float(m_an["solver_runtime_s"]
+                                 / m_cg["solver_runtime_s"]),
+                   cg_iters=int(m_cg["solver_iters"]),
+                   cg_converged=bool(m_cg["is_conv"]),
+                   k=len(m_cg["inducing_pts_idxs"]),
+                   peak_mem_gb=peak_train_an, analytic_solve_s=solve_s,
+                   solve_peak_mem_gb=peak, dense_K_gb=n * n * 8 / 1e9,
+                   seconds=time.perf_counter() - t0)
+        emit("benchmark_models", part="crossover", **row)
+        if not (row["cg_converged"] and finite_numbers(row)
+                and all(np.all(np.isfinite(m["alphas_F"]))
+                        for m in (m_an, m_cg))):
+            fail(f"benchmark_models crossover at n = {n}: cg converged="
+                 f"{row['cg_converged']}, finite numbers "
+                 f"{finite_numbers(row)}")
 
 
 def held_out_errors(model, R, E, F, dev, fast=False):
@@ -1997,6 +2118,91 @@ def bench(dev, refs: dict) -> dict:
     return launches
 
 
+def busy_lines(lines: list) -> list:
+    """The lines of a tool that carry a profiler reading."""
+    return [ln for ln in lines if ln.get("busy_share") is not None]
+
+
+def check_profile(label: str, lines: list) -> list:
+    """The profile phase's checks of one tool run: a list of failures."""
+    bad = []
+    if not finite_numbers(lines):
+        bad.append("a number is not finite")
+    for ln in busy_lines(lines):
+        if not 0.0 < ln["busy_share"] <= 1.0:
+            bad.append(f"busy_share {ln['busy_share']} outside (0, 1]")
+        busy, window = (ln.get("device_busy_ms_per_iter"),
+                        ln.get("profiled_ms_per_iter"))
+        if busy is not None and not busy <= PROFILE_BUSY_SLACK * window:
+            bad.append(f"device busy {busy} ms > {PROFILE_BUSY_SLACK} x the "
+                       f"window {window} ms")
+    by_case = {ln.get("case"): ln for ln in lines}
+    if label.startswith("chunk_parts"):
+        # the device's busy time splits on every run, the loop's time on
+        # the main task's (MAIN_CHUNK_RUNS)
+        held = (("device_busy_ms_per_iter", "ms_per_iter")
+                if label in MAIN_CHUNK_RUNS else ("device_busy_ms_per_iter",))
+        for key in held:
+            split = by_case["split"][key]
+            if split is None or not (abs(split["sum_over_full"] - 1.0)
+                                     <= PROFILE_SUM_RTOL):
+                bad.append(f"{key}: matvec + apply + vector ops {split} do "
+                           f"not add up to the whole within "
+                           f"{PROFILE_SUM_RTOL}")
+        if not busy_lines([by_case["full"]]):
+            bad.append("the full chunk has no profiler reading")
+    if label == "chunk_parts_main_df64":
+        from mlff_tpu_torch.ops.df64_gemv import KERNEL_NAMES
+
+        full = by_case["full"]
+        names = {k["name"]: k["calls_per_iter"] for k in full["top_kernels"]}
+        for wrapper, kernel in KERNEL_NAMES.items():
+            calls = [c for name, c in names.items() if kernel in name]
+            counted = full["df64_launches_per_iter"][wrapper]
+            if calls != [1.0] or counted != 1.0:
+                bad.append(f"{wrapper}: profiler {calls}, counter {counted} "
+                           f"launches per iteration, not 1")
+    if label == "ozaki_matvec":
+        err = by_case["matvec"]["ozaki_vs_f64_rel"]
+        if not err <= PRECISION_MATVEC_RTOL:
+            bad.append(f"the Ozaki matvec misses f64 by {err}")
+    if label == "f32_apply":
+        for ln in lines:
+            if ln["converged"] and not ln["true_resid"] <= PRECISION_RESID_LIMIT:
+                bad.append(f"the {ln['apply']} apply reports convergence "
+                           f"with a true residual {ln['true_resid']}")
+    return bad
+
+
+def profile() -> None:
+    """The per-layer timing tools on the card (PROFILE_RUNS), one line per
+    run with the tool's lines and seconds, then the main task's split."""
+    t_phase = time.perf_counter()
+    failures, main = [], {}
+    for label, tool, argv in PROFILE_RUNS:
+        _, lines, seconds = run_tool(tool, argv)
+        emit("profile", part=label, tool=tool, argv=[str(a) for a in argv],
+             seconds=seconds, reduced=[], lines=lines)
+        failures += [f"{label}: {b}" for b in check_profile(label, lines)]
+        if label in MAIN_CHUNK_RUNS:
+            by_case = {ln["case"]: ln for ln in lines}
+            main[label] = {
+                "split_ms_per_iter": by_case["split"]["ms_per_iter"],
+                "split_device_busy_ms_per_iter":
+                    by_case["split"]["device_busy_ms_per_iter"],
+                "busy_share": by_case["full"]["busy_share"],
+                "idle_share": by_case["full"]["idle_share"],
+                "busy_share_unprofiled":
+                    by_case["full"]["busy_share_unprofiled"],
+                "launches_per_iter": by_case["full"]["launches_per_iter"],
+                "df64_launches_per_iter":
+                    by_case["full"].get("df64_launches_per_iter")}
+    emit("profile", part="summary", main_task=main,
+         seconds=time.perf_counter() - t_phase)
+    if failures:
+        fail(f"profile: {failures}")
+
+
 def card() -> str:
     """The card's name and power limit as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -2514,6 +2720,9 @@ def main() -> None:
     # -- bench: the measurement tools -----------------------------------------
     bench_launches = bench(dev, {"train": train_ref,
                             "train_df64": df64_refs["train_df64"]})
+
+    # -- profile: the per-layer timing tools ----------------------------------
+    profile()
 
     full = fused_rows["full"]
     kernels = [{

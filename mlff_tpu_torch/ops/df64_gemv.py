@@ -288,6 +288,10 @@ def _launch_b_x(lib: ctypes.CDLL, Bh, Bl, x) -> torch.Tensor:
 df64_bt_v.launches = 0
 df64_b_x.launches = 0
 
+# each wrapper's kernel as torch.profiler names it: the __global__
+# functions of csrc/df64_gemv.cu (their template argument follows)
+KERNEL_NAMES = {"df64_bt_v": "bt_v_kernel", "df64_b_x": "b_x_kernel"}
+
 
 def bound_seconds(n: int, m: int, f32_peak: float,
                   mem_rate: float) -> tuple[float, str]:

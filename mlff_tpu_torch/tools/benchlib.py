@@ -1,6 +1,9 @@
 """What the measurement tools of this package share: the ``--device``
 argument, the device's name, the benchmark task, the kernel cache's warm
-re-measure, the peak device memory and the progress lines.
+re-measure, the peak device memory and the progress lines; for the timing
+tools (``time_*``) the root profile tools' ethanol system, a call's time by
+CUDA events, a stage's time on the host's clock and one chunk of the real
+PCG loop as a callable.
 
 Every timer here stops on a synchronized device.  A device number (the
 peak memory, a CUDA event time) exists only on the card; on the CPU it is
@@ -112,3 +115,87 @@ def times(model: dict) -> tuple[float, float, float]:
     return (float(model.get("total_time_preconditioner", np.nan)),
             float(model.get("total_time_cg", np.nan)),
             float(model.get("cache_build_s", np.nan)))
+
+
+def event_ms(dev: torch.device, fn, reps: int = 20, warmup: int = 3
+             ) -> float | None:
+    """Milliseconds per call of ``fn``: ``reps`` calls back to back between
+    two CUDA events after ``warmup`` calls.  Where the host queues the calls
+    slower than the card runs them, this is the host's rate, as the calls'
+    users see it.  None on the CPU (nothing runs)."""
+    if dev.type != "cuda":
+        return None
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(stop) / reps
+
+
+def host_s(dev: torch.device, fn):
+    """(result, seconds) of one call of ``fn`` on the host's clock, from a
+    synchronized device to a synchronized device; the seconds are None on
+    the CPU.  For stages that mix host work, transfers and device work."""
+    synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    synchronize(dev)
+    return out, (time.perf_counter() - t0 if dev.type == "cuda" else None)
+
+
+def on_card(dev: torch.device, value):
+    """``value`` on the card, None on the CPU: a time read on the CPU is not
+    a device number."""
+    return value if dev.type == "cuda" else None
+
+
+def ethanol_system(n_train: int, dev: torch.device, sig: float,
+                   lam: float = CG_LAM, perms: bool = False,
+                   seed: int = 11) -> tuple:
+    """(spec, cache, dataset) of the root profile tools' system: easy
+    synthetic ethanol (``make_dataset``, ``n_train`` samples), the identity
+    permutation or, with ``perms``, the benchmark's group (P = 6)."""
+    from ..data.synthetic import benchmark_perms, make_dataset
+    from ..ops import descriptor as dsc
+
+    ds = make_dataset("ethanol", n_samples=n_train, seed=seed)
+    spec = dsc.make_spec(ds["R"].shape[1])
+    S = dsc.incidence_matrix(spec, device=dev)
+    P_idx = (dsc.desc_perms(benchmark_perms("ethanol")) if perms
+             else np.arange(spec.dim)[None, :])
+    X, Jc = dsc.descriptors_from_R(
+        spec, torch.as_tensor(ds["R"], dtype=torch.float64, device=dev))
+    cache = knl.build_cache(X, Jc, S, P_idx, sig, lam, device=dev)
+    return spec, cache, ds
+
+
+def chunk_runner(solver, b: torch.Tensor, chunk: int):
+    """One chunk of ``solver``'s real PCG loop as a callable: ``chunk``
+    iterations of ``PCGSolver._run`` from the start state x = 0 on ``b``,
+    with a threshold it never reaches, then the one host read that
+    ``solvers/cg.py::_pcg_drive`` makes per chunk.  Returns the iterate."""
+    from ..solvers.cg import CGState
+
+    x0 = torch.zeros_like(b)
+    resid0 = torch.linalg.norm(b)
+    threshold = torch.zeros((), dtype=b.dtype, device=b.device)
+
+    def run():
+        state = CGState(
+            x=x0, r=b, p=torch.zeros_like(b),
+            rho=torch.ones((), dtype=b.dtype, device=b.device),
+            resid=resid0, it=torch.zeros((), dtype=torch.int64,
+                                         device=b.device),
+            done=torch.zeros((), dtype=torch.bool, device=b.device))
+        state, log = solver._run(state, threshold, chunk)
+        head = torch.stack([state.it.to(b.dtype), state.done.to(b.dtype),
+                            state.resid])
+        torch.cat([log, head]).cpu()
+        return state.x
+
+    return run

@@ -37,8 +37,14 @@ the norm (the digit products are exact; the f64 parts round in another
 order).  The row-sharded operator runs on a one-rank NCCL group in this
 process: its matvec equals the unsharded one to 1e-12 and its Nystrom
 apply (f64 and df64) to 1e-10; a gloo group stages CUDA tensors through
-host memory and gives them back on the card.
+host memory and gives them back on the card.  The profiler reader
+(``utils/timing.py::device_profile``) reads a device spin as busy (share
+>= 0.9), a host sleep between two launches as idle (>= 0.5), names both
+df64 kernels once per apply, and raises when the profiler records no
+device activity.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -709,3 +715,74 @@ def test_gloo_group_stages_cuda_tensors(nccl_mesh):
     assert got.is_cuda and torch.equal(got, t)
     assert torch.equal(sh.all_reduce(t), t) and torch.equal(t, torch.arange(
         6, dtype=torch.float64, device="cuda"))
+
+
+# -- the profiler reader (utils/timing.py::device_profile) -------------------
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the profiler reads the card")
+
+
+def test_device_profile_reads_a_spin_as_busy(card):
+    """One long device spin per call: the card is busy nearly the whole
+    window, one launch per call."""
+    from mlff_tpu_torch.utils.timing import device_profile
+
+    prof = device_profile(torch, lambda: torch.cuda._sleep(50_000_000),
+                          warmup=1, reps=3, device="cuda")
+    assert prof["busy_share"] >= 0.9
+    assert prof["device_busy_ms"] <= 1.05 * prof["window_ms"]
+    assert prof["launches"] == 1
+
+
+def test_device_profile_reads_a_host_sleep_as_idle(card):
+    """Two tiny launches with 10 ms of host sleep between them: the card
+    waits most of the window."""
+    from mlff_tpu_torch.utils.timing import device_profile
+
+    x = torch.zeros(16, device="cuda")
+
+    def call():
+        x.add_(1.0)
+        time.sleep(0.01)
+        x.add_(1.0)
+        return x
+
+    prof = device_profile(torch, call, warmup=1, reps=3)
+    assert prof["idle_share"] >= 0.5
+    assert prof["launches"] == 2
+
+
+def test_device_profile_names_the_df64_kernels(card):
+    """One df64 apply: both hand-written kernels appear among the top
+    kernels, once each per call."""
+    from mlff_tpu_torch.solvers import preconditioners as pc
+    from mlff_tpu_torch.utils.timing import device_profile
+
+    rng = np.random.default_rng(2)
+    n, m = 4099, 256
+    P = pc.WoodburySplitPreconditioner(
+        B=torch.as_tensor(rng.normal(size=(n, m)) / np.sqrt(n),
+                          device="cuda"),
+        W2=torch.as_tensor(rng.normal(size=(m, m)) / m, device="cuda"),
+        lam=1e-10, info={})
+    P64 = pc.df64_from_split(P)
+    v = torch.as_tensor(rng.normal(size=n), device="cuda")
+    prof = device_profile(torch, lambda: pc.df64_woodbury_apply(P64, v),
+                          warmup=1, reps=1)
+    names = {k["name"]: k["calls"] for k in prof["top_kernels"]}
+    for kernel in df64_gemv.KERNEL_NAMES.values():
+        assert [c for name, c in names.items() if kernel in name] == [1.0]
+
+
+def test_device_profile_raises_without_device_activity(card, monkeypatch):
+    """A profile that records no device activity raises: it never reads as
+    an idle card."""
+    from mlff_tpu_torch.utils import timing
+
+    monkeypatch.setattr(timing, "_device_events", lambda prof: [])
+    x = torch.zeros(16, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA activity"):
+        timing.device_profile(torch, lambda: x.add_(1.0), warmup=1, reps=2)

@@ -22,7 +22,14 @@ FORBIDDEN = ("jax", "jaxlib", "mlff_tpu")
 TOOL_ARGV = {"bench": [], "bench_time_to_solution": [],
              "bench_k_sweep_31k": [], "bench_scaling": [],
              "bench_molecule_table": ["ethanol"], "bench_nanotube": [],
-             "run_500k": ["--probe"]}
+             "run_500k": ["--probe"],
+             # the per-layer timing tools
+             **{name: [] for name in (
+                 "time_chunk_parts", "time_cg_iter", "time_matvec",
+                 "time_woodbury_apply", "time_woodbury_f32", "exp_f32_apply",
+                 "time_factorization", "time_nanotube_iter",
+                 "time_ozaki_matvec", "time_ozaki_loop", "time_otf_parts",
+                 "make_example_figures")}}
 LAZY_API = ("Trainer", "Predictor", "create_task", "make_dataset", "evaluate")
 
 
@@ -61,6 +68,8 @@ def test_importing_the_port_loads_no_jax():
             "import mlff_tpu_torch.tools.bench_molecule_table\n"
             "import mlff_tpu_torch.tools.bench_nanotube\n"
             "import mlff_tpu_torch.tools.run_500k\n"
+            + "".join(f"import mlff_tpu_torch.tools.{name}\n"
+                      for name in TOOL_ARGV) +
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mlff_tpu', 'matplotlib')]\n"
             "assert not bad, bad\n")
@@ -71,13 +80,8 @@ def test_importing_the_port_loads_no_jax():
 @pytest.mark.parametrize("entry", ["Trainer", "Predictor", "build_cache",
                                    "cli.main", "evaluate", "cg_steps",
                                    "train_model", "gp_regression",
-                                   "init_distributed", "tools.bench",
-                                   "tools.bench_time_to_solution",
-                                   "tools.bench_k_sweep_31k",
-                                   "tools.bench_scaling",
-                                   "tools.bench_molecule_table",
-                                   "tools.bench_nanotube",
-                                   "tools.run_500k"])
+                                   "init_distributed",
+                                   *[f"tools.{name}" for name in TOOL_ARGV]])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without a card, an entry point called without device="cpu" (the CLI
     without --device cpu) raises: it never moves to the CPU on its own, and
