@@ -185,7 +185,11 @@ Phases, each printing one JSON line of its own numbers:
                  convergence has a true residual within 1.3e-4
 The kernel phase also holds the fused kernel's wide route (D > 129) to its
 plain version at D = 130, 210, 3828 and 68,265 (1e-12, same bits twice)
-and times it at B = 512 at the aspirin, catcher and full-row shapes.
+and times it at B = 512 and B = 1 at the aspirin, catcher, full-row and
+nanotube shapes, beside its plain version and the four dense products it
+computes as torch.matmul (``library_ms``, a yardstick), with each plan's
+slices of D (``n_ksplit``); the build line gives the registers and spills
+of each wide-route kernel.
 
 Then the kernel table as one JSON line, the card's name and power limit as
 nvidia-smi reports them, and as the last line
@@ -266,11 +270,13 @@ WIDE_CHECKED = ((130, None), (210, ("aspirin", 250)),
 WIDE_RTOL = 1e-12
 # timed at B = 512: (label, operands, M, D); "full_*" are the full row's
 # M = 6996 at a wide width (random operands at D = 3828: 6996 catcher
-# geometries would take the host ~10 s to make)
+# geometries would take the host ~10 s to make; the nanotube's 526 take
+# ~8 s)
 WIDE_TIMED = (("aspirin", ("aspirin", 250), 1500, 210),
               ("catcher", ("catcher", 119), 119, 3828),
               ("full_210", ("aspirin", 1166), 6996, 210),
-              ("full_3828", None, 6996, 3828))
+              ("full_3828", None, 6996, 3828),
+              ("nanotube", ("nanotube", 14), 14, 68265))
 # the large systems: (phase, molecule, N_train, k, iteration limit).  The
 # limits: 157k, 841 iterations of the JAX package's ozaki OTF solve on a
 # TPU + 50% (no f64 record); aspirin and catcher, the JAX package's counts
@@ -522,19 +528,6 @@ def fused_predict_rows(torch, Xq, Xqt, wt, Xq_held) -> dict:
     return rows
 
 
-def random_operands(torch, B: int, M: int, D: int, seed: int):
-    """(Xq (B, D), Xqt (M, D), wt (M, D)) on the card, seeded: descriptors in
-    [0.05, 0.15), standard normal cotangents."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-
-    def uniform(*shape):
-        return 0.05 + 0.1 * torch.rand(shape, generator=gen,
-                                       dtype=torch.float64, device="cuda")
-
-    return uniform(B, D), uniform(M, D), torch.randn(
-        (M, D), generator=gen, dtype=torch.float64, device="cuda")
-
-
 def fused_wide_rows(torch) -> dict:
     """The fused kernel's wide route (D > 129) against its plain version at
     every width of WIDE_CHECKED, with B = 7 and a full batch and M ragged
@@ -542,12 +535,13 @@ def fused_wide_rows(torch) -> dict:
     with its plain version at the shapes of WIDE_TIMED, and at B = 1.
     Returns {label: row} of the timed rows."""
     from mlff_tpu_torch.ops import fused_predict as fp
-    from mlff_tpu_torch.tools.time_fused_predict import operands
+    from mlff_tpu_torch.tools.time_fused_predict import (operands,
+                                                         random_operands)
     from mlff_tpu_torch.utils.timing import time_in_turns
 
     for D, source in WIDE_CHECKED:
         if source is None:
-            Xq, Xqt, wt = random_operands(torch, 513, 301, D, D)
+            Xq, Xqt, wt = random_operands(513, 301, D, D, "cuda")
         else:
             Xq, Xqt, wt = operands(*source, 513 if D < 68265 else 60, "cuda")
         M = Xqt.shape[0] - 3 if Xqt.shape[0] > 64 else Xqt.shape[0]
@@ -577,15 +571,19 @@ def fused_wide_rows(torch) -> dict:
     rows = {}
     for label, source, M, D in WIDE_TIMED:
         if source is None:
-            Xq, Xqt, wt = random_operands(torch, 512, M, D, 7)
+            Xq, Xqt, wt = random_operands(512, M, D, 7, "cuda")
         else:
             Xq, Xqt, wt = operands(*source, 512, "cuda")
         if tuple(Xqt.shape) != (M, D):
             fail(f"wide operands {label}: {tuple(Xqt.shape)}, not {(M, D)}")
         args, one = (Xq, Xqt, wt, SIG), (Xq[:1].contiguous(), Xqt, wt, SIG)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        G, a1 = (torch.rand((512, M), generator=gen, dtype=torch.float64,
+                            device="cuda") for _ in range(2))
         turns = time_in_turns(torch, {
             "plain": lambda: fp.desc_forces_fused_ref(*args),
-            "kernel": lambda: fp.desc_forces_fused(*args)},
+            "kernel": lambda: fp.desc_forces_fused(*args),
+            "library": lambda: wide_products(Xq, Xqt, wt, G, a1)},
             lead_ms=FUSED_LEAD_MS)
         ms_one = time_in_turns(torch, {
             "kernel": lambda: fp.desc_forces_fused(*one)},
@@ -599,10 +597,14 @@ def fused_wide_rows(torch) -> dict:
                "ms": turns["kernel"][0], "ms_spread": turns["kernel"][1],
                "plain_ms": turns["plain"][0],
                "plain_ms_spread": turns["plain"][1],
-               "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-               "ms_B1": ms_one, "plan": str(fp.plan(512, M, D, fp._sm_count(
-                   torch.cuda.current_device())))}
+               "library_ms": turns["library"][0],
+               "library_ms_spread": turns["library"][1],
+               "bound_ms": bound_s * 1e3, "bound_by": bound_by}
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["ms_B1"] = ms_one
+        row["plan"], row["plan_B1"] = (wide_plan_fields(fp.plan(
+            b, M, D, fp._sm_count(torch.cuda.current_device())))
+            for b in (512, 1))
         emit("kernel", name="fused_predict", route="wide", **row)
         if row["rel_err_F"] > WIDE_RTOL:
             fail(f"fused_predict's wide route disagrees with its plain "
@@ -611,9 +613,24 @@ def fused_wide_rows(torch) -> dict:
             fail(f"fused_predict ({label}) timed below its bound: "
                  f"{row['ms']} ms against {row['bound_ms']} ms")
         rows[label] = row
-        del Xq, Xqt, wt, args, one, F_k, F_r
+        del Xq, Xqt, wt, args, one, F_k, F_r, G, a1
     torch.cuda.empty_cache()
     return rows
+
+
+def wide_products(Xq, Xqt, wt, G, a1):
+    """The four dense products the wide route computes, S = xq wt^T, the
+    Gram block xq xt^T, G xt and a1 wt, as torch.matmul: a yardstick timed
+    beside the kernel (``library_ms``), never a path it takes."""
+    return Xq @ wt.T, Xq @ Xqt.T, G @ Xqt, a1 @ wt
+
+
+def wide_plan_fields(p) -> dict:
+    """The launch geometry of a wide plan: pass 1's tiles and slices of D,
+    pass 2's tiles and slabs of the training rows."""
+    return {k: getattr(p, k) for k in (
+        "n_qtiles", "n_mtiles", "n_ksplit", "cols_per_slice", "n_dtiles",
+        "n_split", "rows_per_split", "b_chunk")}
 
 
 def fast_against_f64(model, R, dev):
@@ -2517,7 +2534,12 @@ def main() -> None:
              fp._library(), g.width) for g in fp.GEOMETRIES},
          # queries, rows / columns per tile, depth, threads, shared bytes and
          # resident blocks per SM of the two passes
-         fused_predict_wide_geometry=fp.library_wide_geometry(fp._library()))
+         fused_predict_wide_geometry=fp.library_wide_geometry(fp._library()),
+         # registers and spills of each wide-route kernel, as ptxas reports
+         fused_predict_wide_ptxas={
+             k: v for k, v in cuda_build.kernel_resources(
+                 reports.get("fused_predict", "")).items()
+             if "wide" in k})
     spills = [ln for r in reports.values() for ln in cuda_build.spill_lines(r)]
     if spills:
         fail(f"ptxas reports spills: {spills}")
@@ -2751,7 +2773,15 @@ def main() -> None:
         "bound_ms": wide["bound_ms"], "bound_by": wide["bound_by"],
         "library_ms": None, "ms_spread": wide["ms_spread"],
         "share_of_bound": wide["share_of_bound"],
-        "ms_by_shape": {k: v["ms"] for k, v in wide_rows.items()}})
+        **{f"{key}_by_shape": {k: v[key] for k, v in wide_rows.items()}
+           for key in ("ms", "plain_ms", "bound_ms", "share_of_bound",
+                       "ms_B1")},
+        # the four dense products as torch.matmul: no single PyTorch call
+        # computes the route's function
+        "products_ms_by_shape": {k: v["library_ms"]
+                                 for k, v in wide_rows.items()},
+        "n_ksplit_by_shape": {k: v["plan"]["n_ksplit"]
+                              for k, v in wide_rows.items()}})
     for name, line in (("df64_bt_v", 41), ("df64_b_x", 118)):
         main_row = df64_rows[(name, "main")]
         kernels.append({

@@ -74,24 +74,58 @@
 // longer fit its registers, and the weights of a pair need sums over all of
 // D before any of F can be formed.  So the wide route is two passes that
 // meet in a (B, M) pair of f64 weight arrays in device memory, as the TPU
-// kernel's own caller meets it in an f64 (B, M) distance array:
-//  * wide_weights: block (training tile, query tile) of 64 x 64 pairs walks
-//    D in steps of 16 through shared memory, S = xq wt^T and Gram = xq xt^T
-//    on m16n8k4 mmas (a warp owns 16 queries x 64 rows, 64 accumulators),
-//    and the row terms |xq|^2, |xt|^2, ct beside them; then the weights on
-//    the C fragments, G = a dot and a1 = a (1 + dist) written to device
-//    memory, and each query's sums of G and a1 dot over the tile written
-//    as the tile's partial;
-//  * wide_row_sums: each query's sum of G and its E over the training tiles,
-//    in tile order;
-//  * wide_forces: block (descriptor tile, query tile, slab of training rows)
-//    of 64 queries x 64 columns: F += G xt + a1 wt over the slab, 16 rows at
-//    a time through shared memory, on m16n8k4 mmas; with one slab it writes
-//    F = xq sum G - that, with several each slab writes a partial that
-//    wide_finish adds in slab order.
-// Rows, queries and columns past the ends are staged as zeros and not
-// stored; every sum runs in a fixed order, so a call gives the same bits
-// every time.  Simple before fast: no copy overlaps the products yet.
+// kernel's own caller meets it in an f64 (B, M) distance array.  Both passes
+// are GEMM-shaped and bound by the f64 tensor pipe, and both are built the
+// same way: blocks of 4 warps, two resident per SM (~240 registers a
+// thread, ~95 KB of shared memory a block), so that one block's barrier
+// leaves the other's warps issuing; each warp a 32-query tile of m16n8k4
+// mmas with 64 accumulators; the operands streamed through a ring of 3
+// shared-memory stages filled by cp.async (16-byte copies when D is even
+// and the arrays 16-byte aligned, 8-byte otherwise), the copies of the next
+// 2 stages in flight while the current one is multiplied, one __syncthreads
+// per stage.  Row pitches are 4 mod 16 doubles, which puts a half warp's
+// fragment reads on distinct banks.
+//  * wide_weights (pass 1): tiles of 64 queries x 64 training rows, 16
+//    descriptor columns a stage; a warp owns 32 x 32 pairs of both
+//    S = xq wt^T and Gram = xq xt^T.  The row terms |xq|^2, |xt|^2, ct are
+//    summed from the same stages, spread evenly over the warps (four
+//    threads to a row).  They cost the full row at D = 3828 ~10% (a build
+//    without them ran it 12% faster); summing them from the mma fragments
+//    instead, each warp its share, took more registers than pass 1 has.  The query tile is the tiles' fastest
+//    axis, so the blocks in flight share their xt and wt rows, which are
+//    read from device memory once.
+//  * Splitting D.  Where the tiles leave SMs idle in a wave, pass 1 cuts D:
+//    at small M (catcher: 119 rows, 16 tiles at B = 512; the nanotube: 14
+//    rows) or small B every tile would otherwise walk thousands of columns
+//    alone, and at large M the last wave is partial (full_3828: 880 tiles,
+//    3 waves of 264 and 88 over).  The tiles of the last wave that is not
+//    full (all tiles where they fill less than one) are each cut into as
+//    many slices as fill that wave.  A slice's block writes its partial S,
+//    Gram and row terms to scratch, and wide_combine adds the slices in
+//    slice order and forms the weights.  (A thread-block cluster reducing
+//    through distributed shared memory would keep the partials on chip, but
+//    a portable cluster holds at most 8 blocks, too few slices for catcher
+//    at B = 1 or the nanotube, and the partials are small: one wave of
+//    64 x 64 tiles, 17 MB.)  An unsplit tile forms the weights on its C
+//    fragments.  Either way G = a dot and a1 = a (1 + dist) go to device
+//    memory with a row pitch ldm = M rounded up to even, and each query's
+//    sums of G and a1 dot over the training tile are written as the tile's
+//    partial.
+//  * wide_forces (pass 2): tiles of 64 queries x 128 descriptor columns, 8
+//    training rows a stage: F += G xt + a1 wt, a warp owning 32 queries x
+//    64 columns.  While its first stages land, a block sums its queries' G
+//    over the training tiles in tile order (and one block per query tile
+//    writes them and the energies out).  The F tile then goes through shared memory and out row by
+//    row, a column a thread, with 16 rows of xq loaded ahead of the stores
+//    (written from the fragments, each lane's stores waited on its own
+//    loads, which made the epilogue of a short slab its whole time).  With
+//    one slab it writes F = xq sum G - that; where the tiles fill less than
+//    a wave the plan cuts the training rows into slabs, each writes a
+//    partial and wide_finish adds them in slab order.
+// A warp whose queries all lie past B, or whose rows or columns lie past M
+// or D, skips those tiles' mmas (B = 1, M = 14).  Rows, queries and columns
+// past the ends are staged as zeros and not stored; every sum runs in a
+// fixed order, so a call gives the same bits every time.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math).
@@ -125,6 +159,17 @@ __device__ __forceinline__ void mma(double (&c)[4], const double (&a)[2],
       "{%4,%5}, {%6}, {%0,%1,%2,%3};"
       : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
       : "d"(a[0]), "d"(a[1]), "d"(b));
+}
+
+// The 16x8x8 form: a[0..3] = A[g][t], A[g + 8][t], A[g][t + 4],
+// A[g + 8][t + 4]; b[0..1] = B[t][g], B[t + 4][g] (g = lane / 4,
+// t = lane % 4); c as in the 16x8x4 form.
+__device__ __forceinline__ void mma(double (&c)[4], const double (&a)[4],
+                                    const double (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
 // Asynchronous copy of 16 or 8 bytes to shared memory; with bytes = 0 the
@@ -464,218 +509,601 @@ using W136 = Instance<17, 1, 8, 1>;
 
 namespace wide {
 
-constexpr int BQ = 64;       // queries per block tile
-constexpr int BN = 64;       // training rows (pass 1) or columns (pass 2)
-constexpr int KC = 16;       // depth staged per step
-constexpr int NTHR = 128;    // 4 warps of 16 queries
-constexpr int PA = KC + 4;   // pitch of [row][k] tiles, 4 mod 8 doubles
-constexpr int PB = BN + 4;   // pitch of [k][column] tiles
+constexpr int NTHR = 128;   // 4 warps in both passes
+constexpr int MINB = 2;     // blocks per SM the registers must allow
+constexpr int BQ = 64;      // queries per block tile, both passes
+constexpr int WQ = BQ / 32; // warps along the queries (32 queries each)
+// pass 1: BQ queries x BN training rows, KC1 descriptor columns per stage
+constexpr int BN = 64;
+constexpr int KC1 = 16;
+constexpr int NS1 = 3;
+constexpr int PA1 = KC1 + 4;  // pitch of the [row][k] tiles, 4 mod 16
+// pass 2: BQ queries x BD descriptor columns, KC2 training rows per stage
+constexpr int BD = 128;
+constexpr int KC2 = 8;
+constexpr int NS2 = 3;
+constexpr int PA2 = KC2 + 4;  // [query][k] tiles of G and a1, 12
+constexpr int PB2 = BD + 4;   // [k][column] tiles of xt and wt, 4 mod 16
+constexpr int CQ = 8;         // queries per block of wide_combine
+// a split tile's partial of one slice: S, Gram, |xq|^2, |xt|^2, ct
+constexpr int PART_DOUBLES = 2 * BQ * BN + BQ + 2 * BN;
+// pass 2 stages its F tile in shared memory at this pitch (8 mod 16: a
+// quarter warp's double2 writes of two rows fall on distinct banks)
+constexpr int PF = BD + 8;
+static_assert(NTHR == 64 * WQ, "two warps of 32 queries per query slice");
+static_assert(NTHR == BD, "pass 2 writes its tile a column a thread");
+static_assert(BQ * (BD + 8) <= NS2 * (2 * BQ * PA2 + 2 * KC2 * PB2),
+              "pass 2's F tile fits the ring");
+// row terms of pass 1: four threads to a query row and a training row, RS
+// rows of each to a thread
+static_assert(BQ == BN, "pass 1's row terms pair query and training rows");
+constexpr int RS = 4 * BQ / NTHR;
+static_assert(RS * NTHR == 4 * BQ && KC1 % 4 == 0, "whole rows, columns");
 
 constexpr size_t smem_weights() {
-  return sizeof(double) * (size_t)((BQ + 2 * BN) * PA + BQ + 2 * BN);
+  return sizeof(double) *
+         (size_t)(NS1 * (BQ + 2 * BN) * PA1 + BQ + 2 * BN + 4 * BQ);
 }
 constexpr size_t smem_forces() {
-  return sizeof(double) * (size_t)(2 * BQ * PA + 2 * KC * PB);
+  return sizeof(double) * (size_t)(NS2 * (2 * BQ * PA2 + 2 * KC2 * PB2) + BQ);
 }
 
-__global__ void __launch_bounds__(NTHR)
+__device__ __forceinline__ void store2(double* p, double a, double b) {
+  *reinterpret_cast<double2*>(p) = make_double2(a, b);
+}
+
+// the number of valid tiles of `size` rows starting at `first`, at most n
+__device__ __forceinline__ int valid_tiles(int end, int first, int size,
+                                           int n) {
+  return max(0, min(n, (end - first + size - 1) / size));
+}
+
+// S += xq wt^T and Gm += xq xt^T over one KC1-deep stage: the warp's 32
+// queries (two 16-row A tiles) x 32 training rows (four 8-row B tiles).
+// With WHOLE false only the first ni A tiles and nj B tiles are multiplied.
+template <bool WHOLE>
+__device__ __forceinline__ void weight_products(
+    double (&S)[2][4][4], double (&Gm)[2][4][4], const double* q,
+    const double* x, const double* w, int g, int t, int ni, int nj) {
+#pragma unroll
+  for (int kk = 0; kk < KC1 / 4; ++kk) {
+    const int k = 4 * kk + t;
+    double a[2][2], bx[4], bw[4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      a[i][0] = q[(16 * i + g) * PA1 + k];
+      a[i][1] = q[(16 * i + g + 8) * PA1 + k];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      bx[j] = x[(8 * j + g) * PA1 + k];
+      bw[j] = w[(8 * j + g) * PA1 + k];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (WHOLE || (i < ni && j < nj)) {
+          mma(S[i][j], a[i], bw[j]);
+          mma(Gm[i][j], a[i], bx[j]);
+        }
+  }
+}
+
+// Pass 1.  Tiles in order t = query tile + n_qt training tile.  Blocks
+// x < n_whole take tile x over all of D and form the weights on their C
+// fragments: gw, aw (B, ldm), and each query's sums of G and a1 dot over
+// the tile in gpart, epart (n_mt, B).  The tiles from n_whole on (the last,
+// partial wave's) are split: block n_whole + u takes tile n_whole + u % n_tail
+// and slice y = u / n_tail of the columns, [y cols_per_slice, (y + 1)
+// cols_per_slice), and writes its partial S, Gram (BQ x BN each) and row
+// terms (BQ of |xq|^2, BN each of |xt|^2 and ct) to part entry
+// (u % n_tail) n_ksplit + y, for wide_combine.
+__global__ void __launch_bounds__(NTHR, MINB)
 wide_weights(const double* __restrict__ xq, const double* __restrict__ xt,
              const double* __restrict__ wt, double* __restrict__ gw,
              double* __restrict__ aw, double* __restrict__ gpart,
-             double* __restrict__ epart, int B, int M, int D, double c0) {
-  __shared__ __align__(16) double s_q[BQ * PA];
-  __shared__ __align__(16) double s_x[BN * PA];
-  __shared__ __align__(16) double s_w[BN * PA];
-  __shared__ double s_nq[BQ], s_nt[BN], s_ct[BN];
+             double* __restrict__ epart, double* __restrict__ part, int B,
+             int M, int D, int ldm, int n_qt, int n_whole, int n_tail,
+             int n_ksplit, int cols_per_slice, int copy16, double c0) {
+  extern __shared__ __align__(16) double smem[];
+  double* s_q = smem;                  // [NS1][BQ][PA1]
+  double* s_x = s_q + NS1 * BQ * PA1;  // [NS1][BN][PA1]
+  double* s_w = s_x + NS1 * BN * PA1;  // [NS1][BN][PA1]
+  double* s_nq = s_w + NS1 * BN * PA1; // [BQ]  |xq|^2
+  double* s_nt = s_nq + BQ;            // [BN]  |xt|^2
+  double* s_ct = s_nt + BN;            // [BN]  sum_d xt wt
+  double* s_red = s_ct + BN;           // [wm][gsum, esum][BQ]
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int m0 = blockIdx.x * BN, b0 = blockIdx.y * BQ;
+  // the warp's 32 queries and 32 rows; the warps of one row half (all that
+  // a small M keeps busy) have neighbouring ids, which the SM deals to
+  // different sub-partitions
+  const int wq = warp % WQ, wm = warp / WQ;
+  const bool split = (int)blockIdx.x >= n_whole;
+  const int u = blockIdx.x - n_whole;
+  const int tile = split ? n_whole + u % n_tail : blockIdx.x;
+  const int qt = tile % n_qt, mt = tile / n_qt;
+  const int b0 = qt * BQ, m0 = mt * BN;
+  const int k_begin = split ? u / n_tail * cols_per_slice : 0;
+  const int k_end = split ? min(D, k_begin + cols_per_slice) : D;
+  const int n_steps = (k_end - k_begin + KC1 - 1) / KC1;
 
-  double S[8][4], Gm[8][4];
+  // Stage `step` of the ring: BQ rows of xq and BN rows each of xt and wt,
+  // KC1 columns, zeros past B, M and the slice's end.
+  auto load_stage = [&](int step) {
+    if (step < n_steps) {
+      const int k0 = k_begin + step * KC1;
+      const int st = step % NS1;
+      if (copy16) {
+        constexpr int CPR = KC1 / 2, RPS = NTHR / CPR;  // chunks a row, rows a sweep
+        const int c = 2 * (tid % CPR);
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+        for (int s = 0; s < BQ / RPS; ++s) {
+          const int r = tid / CPR + RPS * s;
+          const bool ok = b0 + r < B && k0 + c < k_end;
+          cp_async16(s_q + (st * BQ + r) * PA1 + c,
+                     ok ? xq + (size_t)(b0 + r) * D + k0 + c : xq,
+                     ok ? 16 : 0);
+        }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) S[n][i] = Gm[n][i] = 0.0;
-  // thread r < 64 sums |xq|^2 of query row r; thread 64 + r sums |xt|^2 and
-  // ct of training row r
-  double r_nn = 0.0, r_ct = 0.0;
-
-  for (int k0 = 0; k0 < D; k0 += KC) {
-    for (int i = tid; i < BQ * KC; i += NTHR) {
-      const int r = i / KC, c = i % KC, d = k0 + c;
-      const bool dok = d < D;
-      s_q[r * PA + c] =
-          (dok && b0 + r < B) ? xq[(size_t)(b0 + r) * D + d] : 0.0;
-      const bool mok = dok && m0 + r < M;
-      s_x[r * PA + c] = mok ? xt[(size_t)(m0 + r) * D + d] : 0.0;
-      s_w[r * PA + c] = mok ? wt[(size_t)(m0 + r) * D + d] : 0.0;
-    }
-    __syncthreads();
-    if (tid < BQ) {
+        for (int s = 0; s < BN / RPS; ++s) {
+          const int r = tid / CPR + RPS * s;
+          const bool ok = m0 + r < M && k0 + c < k_end;
+          const size_t src = ok ? (size_t)(m0 + r) * D + k0 + c : 0;
+          cp_async16(s_x + (st * BN + r) * PA1 + c, xt + src, ok ? 16 : 0);
+          cp_async16(s_w + (st * BN + r) * PA1 + c, wt + src, ok ? 16 : 0);
+        }
+      } else {
+        constexpr int RPS = NTHR / KC1;
+        const int c = tid % KC1;
 #pragma unroll
-      for (int c = 0; c < KC; ++c) {
-        const double x = s_q[tid * PA + c];
-        r_nn = fma(x, x, r_nn);
-      }
-    } else {
-      const int r = tid - BQ;
+        for (int s = 0; s < BQ / RPS; ++s) {
+          const int r = tid / KC1 + RPS * s;
+          const bool ok = b0 + r < B && k0 + c < k_end;
+          cp_async8(s_q + (st * BQ + r) * PA1 + c,
+                    ok ? xq + (size_t)(b0 + r) * D + k0 + c : xq, ok ? 8 : 0);
+        }
 #pragma unroll
-      for (int c = 0; c < KC; ++c) {
-        const double x = s_x[r * PA + c];
-        r_nn = fma(x, x, r_nn);
-        r_ct = fma(x, s_w[r * PA + c], r_ct);
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < KC / 4; ++kk) {
-      double a[2];
-      a[0] = s_q[(16 * warp + g) * PA + 4 * kk + t];
-      a[1] = s_q[(16 * warp + g + 8) * PA + 4 * kk + t];
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        mma(S[n], a, s_w[(8 * n + g) * PA + 4 * kk + t]);
-        mma(Gm[n], a, s_x[(8 * n + g) * PA + 4 * kk + t]);
-      }
-    }
-    __syncthreads();
-  }
-  if (tid < BQ) {
-    s_nq[tid] = r_nn;
-  } else {
-    s_nt[tid - BQ] = r_nn;
-    s_ct[tid - BQ] = r_ct;
-  }
-  __syncthreads();
-
-  // C fragment c[2 h + j] of tile n: query 16 warp + g + 8 h, training row
-  // 8 n + 2 t + j
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int bl = 16 * warp + g + 8 * h;
-    const int b = b0 + bl;
-    const double nq = s_nq[bl];
-    double gsum = 0.0, esum = 0.0;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int ml = 8 * n + 2 * t + j;
-        const int m = m0 + ml;
-        const double d2 = fmax(nq + s_nt[ml] - 2.0 * Gm[n][2 * h + j], 0.0);
-        const double ds = sqrt(d2);
-        const double a = c0 * exp(-ds);
-        const double dot = S[n][2 * h + j] - s_ct[ml];
-        const double gv = a * dot, a1 = a * (1.0 + ds);
-        if (m < M) {
-          gsum += gv;
-          esum = fma(a1, dot, esum);
-          if (b < B) {
-            gw[(size_t)b * M + m] = gv;
-            aw[(size_t)b * M + m] = a1;
-          }
+        for (int s = 0; s < BN / RPS; ++s) {
+          const int r = tid / KC1 + RPS * s;
+          const bool ok = m0 + r < M && k0 + c < k_end;
+          const size_t src = ok ? (size_t)(m0 + r) * D + k0 + c : 0;
+          cp_async8(s_x + (st * BN + r) * PA1 + c, xt + src, ok ? 8 : 0);
+          cp_async8(s_w + (st * BN + r) * PA1 + c, wt + src, ok ? 8 : 0);
         }
       }
-    gsum = quad_sum(gsum);
-    esum = quad_sum(esum);
-    if (t == 0 && b < B) {
-      gpart[(size_t)blockIdx.x * B + b] = gsum;
-      epart[(size_t)blockIdx.x * B + b] = esum;
+    }
+    cp_async_commit();  // always, so that the groups count stages
+  };
+
+  // Row terms from the staged tiles, spread evenly over the warps: thread
+  // tid takes query rows and training rows (tid + NTHR s) / 4 (s < RS) and,
+  // of each stage, their columns c4, c4 + 4, ... (c4 = tid % 4, which puts
+  // a half warp's reads on distinct banks); the four threads of a row,
+  // neighbours in one warp, add their sums at the end.
+  const int c4 = tid % 4;
+  double r_q[RS], r_t[RS], r_c[RS];  // |xq|^2, |xt|^2, ct
+#pragma unroll
+  for (int s = 0; s < RS; ++s) r_q[s] = r_t[s] = r_c[s] = 0.0;
+  auto row_terms = [&](int st) {
+#pragma unroll
+    for (int s = 0; s < RS; ++s) {
+      const int r = (tid + NTHR * s) / 4;
+      const double* pq = s_q + (st * BQ + r) * PA1 + c4;
+      const double* px = s_x + (st * BN + r) * PA1 + c4;
+      const double* pw = s_w + (st * BN + r) * PA1 + c4;
+#pragma unroll
+      for (int e = 0; e < KC1; e += 4) {
+        const double q = pq[e], x = px[e];
+        r_q[s] = fma(q, q, r_q[s]);
+        r_t[s] = fma(x, x, r_t[s]);
+        r_c[s] = fma(x, pw[e], r_c[s]);
+      }
+    }
+  };
+
+  for (int s = 0; s < NS1 - 1; ++s) load_stage(s);
+
+  double S[2][4][4], Gm[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) S[i][j][e] = Gm[i][j][e] = 0.0;
+  const int ni = valid_tiles(B, b0 + 32 * wq, 16, 2);
+  const int nj = valid_tiles(M, m0 + 32 * wm, 8, 4);
+
+  for (int step = 0; step < n_steps; ++step) {
+    // this stage has landed, and every thread is done with the last one,
+    // whose slot the next load refills: one barrier per stage
+    cp_async_wait<NS1 - 2>();
+    __syncthreads();
+    load_stage(step + NS1 - 1);
+    const int st = step % NS1;
+    row_terms(st);
+    if (ni > 0 && nj > 0) {
+      const double* q = s_q + (st * BQ + 32 * wq) * PA1;
+      const double* x = s_x + (st * BN + 32 * wm) * PA1;
+      const double* w = s_w + (st * BN + 32 * wm) * PA1;
+      if (ni == 2 && nj == 4)
+        weight_products<true>(S, Gm, q, x, w, g, t, ni, nj);
+      else
+        weight_products<false>(S, Gm, q, x, w, g, t, ni, nj);
     }
   }
-}
-
-// gsum[b] and e_out[b] = (sum of E's partials) / q, over the n_mt training
-// tiles in order
-__global__ void __launch_bounds__(256)
-wide_row_sums(const double* __restrict__ gpart,
-              const double* __restrict__ epart, double* __restrict__ gsum,
-              double* __restrict__ e_out, int B, int n_mt, double q) {
-  const int b = blockIdx.x * 256 + threadIdx.x;
-  if (b >= B) return;
-  double gs = 0.0, es = 0.0;
-  for (int k = 0; k < n_mt; ++k) {
-    gs += gpart[(size_t)k * B + b];
-    es += epart[(size_t)k * B + b];
+  cp_async_wait<0>();
+#pragma unroll
+  for (int s = 0; s < RS; ++s) {  // the same sums in a row's four threads
+    r_q[s] = quad_sum(r_q[s]);
+    r_t[s] = quad_sum(r_t[s]);
+    r_c[s] = quad_sum(r_c[s]);
   }
-  gsum[b] = gs;
-  e_out[b] = es / q;
+
+  // C fragment [i][j][2 h + c]: query b0 + 32 wq + 16 i + g + 8 h, training
+  // row m0 + 32 wm + 8 j + 2 t + c
+  if (split) {
+    double* p = part + (size_t)((u % n_tail) * n_ksplit + u / n_tail) *
+                           PART_DOUBLES;
+    if (c4 == 0)
+#pragma unroll
+      for (int s = 0; s < RS; ++s) {
+        const int r = (tid + NTHR * s) / 4;
+        p[2 * BQ * BN + r] = r_q[s];
+        p[2 * BQ * BN + BQ + r] = r_t[s];
+        p[2 * BQ * BN + BQ + BN + r] = r_c[s];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rl = 32 * wq + 16 * i + g + 8 * h;
+        if (b0 + rl >= B) continue;  // rows wide_combine does not read
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int ml = 32 * wm + 8 * j + 2 * t;
+          if (m0 + ml >= M) continue;
+          store2(p + rl * BN + ml, S[i][j][2 * h], S[i][j][2 * h + 1]);
+          store2(p + BQ * BN + rl * BN + ml, Gm[i][j][2 * h],
+                 Gm[i][j][2 * h + 1]);
+        }
+      }
+    return;
+  }
+
+  if (c4 == 0)
+#pragma unroll
+    for (int s = 0; s < RS; ++s) {
+      const int r = (tid + NTHR * s) / 4;
+      s_nq[r] = r_q[s];
+      s_nt[r] = r_t[s];
+      s_ct[r] = r_c[s];
+    }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int bl = 32 * wq + 16 * i + g + 8 * h;
+      const int b = b0 + bl;
+      const double nq = s_nq[bl];
+      double gs = 0.0, es = 0.0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (i >= ni || j >= nj) continue;
+        const int ml = 32 * wm + 8 * j + 2 * t;
+        const int m = m0 + ml;
+        double gv[2], av[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const double d2 =
+              fmax(nq + s_nt[ml + c] - 2.0 * Gm[i][j][2 * h + c], 0.0);
+          const double ds = sqrt(d2);
+          const double a = c0 * exp(-ds);
+          const double dot = S[i][j][2 * h + c] - s_ct[ml + c];
+          gv[c] = a * dot;
+          av[c] = a * (1.0 + ds);
+          if (m + c < M) {
+            gs += gv[c];
+            es = fma(av[c], dot, es);
+          }
+        }
+        if (b < B && m < M) {
+          store2(gw + (size_t)b * ldm + m, gv[0], gv[1]);
+          store2(aw + (size_t)b * ldm + m, av[0], av[1]);
+        }
+      }
+      gs = quad_sum(gs);
+      es = quad_sum(es);
+      if (t == 0) {
+        s_red[(2 * wm) * BQ + bl] = gs;
+        s_red[(2 * wm + 1) * BQ + bl] = es;
+      }
+    }
+  __syncthreads();
+  for (int r = tid; r < BQ; r += NTHR)
+    if (b0 + r < B) {
+      gpart[(size_t)mt * B + b0 + r] = s_red[r] + s_red[2 * BQ + r];
+      epart[(size_t)mt * B + b0 + r] = s_red[BQ + r] + s_red[3 * BQ + r];
+    }
 }
 
-__global__ void __launch_bounds__(NTHR)
+// The weights of the split tiles, each sum over the slices in slice order.
+// Block (split tile v, CQ queries): warp w takes query row CQ y + w of the
+// tile, lane l its training rows l and l + 32; each query's sums of G and
+// a1 dot over the tile go to gpart, epart as pass 1 writes them.
+__global__ void __launch_bounds__(CQ * 32, 1)
+wide_combine(const double* __restrict__ part, double* __restrict__ gw,
+             double* __restrict__ aw, double* __restrict__ gpart,
+             double* __restrict__ epart, int B, int M, int ldm, int n_qt,
+             int n_whole, int n_ksplit, double c0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int v = blockIdx.x / (BQ / CQ);
+  const int rl = blockIdx.x % (BQ / CQ) * CQ + warp;
+  const int tile = n_whole + v;
+  const int b = tile % n_qt * BQ + rl, m0 = tile / n_qt * BN;
+  if (b >= B) return;
+  const double* p0 = part + (size_t)v * n_ksplit * PART_DOUBLES;
+  double nq = 0.0;
+  for (int y = 0; y < n_ksplit; ++y)
+    nq += p0[(size_t)y * PART_DOUBLES + 2 * BQ * BN + rl];
+  double gs = 0.0, es = 0.0;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int ml = lane + 32 * c, m = m0 + ml;
+    if (m >= M) continue;
+    double s = 0.0, gm = 0.0, nt = 0.0, ct = 0.0;
+    for (int y = 0; y < n_ksplit; ++y) {
+      const double* p = p0 + (size_t)y * PART_DOUBLES;
+      s += p[rl * BN + ml];
+      gm += p[BQ * BN + rl * BN + ml];
+      nt += p[2 * BQ * BN + BQ + ml];
+      ct += p[2 * BQ * BN + BQ + BN + ml];
+    }
+    const double d2 = fmax(nq + nt - 2.0 * gm, 0.0);
+    const double ds = sqrt(d2);
+    const double a = c0 * exp(-ds);
+    const double dot = s - ct;
+    const double gv = a * dot, av = a * (1.0 + ds);
+    gw[(size_t)b * ldm + m] = gv;
+    aw[(size_t)b * ldm + m] = av;
+    gs += gv;
+    es = fma(av, dot, es);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    gs += __shfl_xor_sync(FULL, gs, off);
+    es += __shfl_xor_sync(FULL, es, off);
+  }
+  if (lane == 0) {
+    gpart[(size_t)(tile / n_qt) * B + b] = gs;
+    epart[(size_t)(tile / n_qt) * B + b] = es;
+  }
+}
+
+// F += G xt + a1 wt over one KC2-deep stage: the warp's 32 queries (two
+// 16-row A tiles each of G and a1) x 64 columns (eight 8-column B tiles
+// each of xt and wt), the training rows as k, on 16x8x8 mmas (fewer
+// instructions for the same operands than 16x8x4).  The G products of all
+// 16 accumulators go first, then the a1 products, so that two mmas into
+// one accumulator stand 16 apart.
+template <bool WHOLE>
+__device__ __forceinline__ void force_products(
+    double (&F)[2][8][4], const double* G, const double* A, const double* X,
+    const double* W, int g, int t, int ni, int nj) {
+#pragma unroll
+  for (int kk = 0; kk < KC2 / 8; ++kk) {
+    const int k = 8 * kk + t;
+    double ag[2][4], aa[2][4], bx[8][2], bw[8][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int o = (16 * i + g + 8 * (e % 2)) * PA2 + k + 4 * (e / 2);
+        ag[i][e] = G[o];
+        aa[i][e] = A[o];
+      }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        bx[j][e] = X[(k + 4 * e) * PB2 + 8 * j + g];
+        bw[j][e] = W[(k + 4 * e) * PB2 + 8 * j + g];
+      }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (WHOLE || (i < ni && j < nj)) mma(F[i][j], ag[i], bx[j]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (WHOLE || (i < ni && j < nj)) mma(F[i][j], aa[i], bw[j]);
+  }
+}
+
+// Pass 2.  Block (column tile, query tile, slab z of the training rows
+// [z rows_per_split, (z + 1) rows_per_split)): F += G xt + a1 wt over the
+// slab through a ring of NS2 stages.  With one slab it writes
+// F = xq sum G - that, with several each slab writes its partial to `part`
+// for wide_finish.
+__global__ void __launch_bounds__(NTHR, MINB)
 wide_forces(const double* __restrict__ xq, const double* __restrict__ xt,
             const double* __restrict__ wt, const double* __restrict__ gw,
-            const double* __restrict__ aw, const double* __restrict__ gsum,
-            double* __restrict__ f_out, double* __restrict__ part, int B,
-            int M, int D, int rows_per_split) {
-  __shared__ __align__(16) double s_g[BQ * PA];
-  __shared__ __align__(16) double s_a[BQ * PA];
-  __shared__ __align__(16) double s_x[KC * PB];
-  __shared__ __align__(16) double s_w[KC * PB];
+            const double* __restrict__ aw, const double* __restrict__ gpart,
+            const double* __restrict__ epart, double* __restrict__ gsum,
+            double* __restrict__ f_out, double* __restrict__ e_out,
+            double* __restrict__ part, int B, int M, int D, int ldm,
+            int n_mt, int rows_per_split, int copy16, double q) {
+  extern __shared__ __align__(16) double smem[];
+  double* s_g = smem;                   // [NS2][BQ][PA2]
+  double* s_a = s_g + NS2 * BQ * PA2;   // [NS2][BQ][PA2]
+  double* s_x = s_a + NS2 * BQ * PA2;   // [NS2][KC2][PB2]
+  double* s_w = s_x + NS2 * KC2 * PB2;  // [NS2][KC2][PB2]
+  double* s_gs = s_w + NS2 * KC2 * PB2; // [BQ]  each query's sum of G
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int d0 = blockIdx.x * BN, b0 = blockIdx.y * BQ;
+  const int wq = warp % WQ, wd = warp / WQ;  // 32 queries, 64 columns
+  const int d0 = blockIdx.x * BD, b0 = blockIdx.y * BQ;
   const int m_begin = blockIdx.z * rows_per_split;
   const int m_end = min(M, m_begin + rows_per_split);
+  const int n_steps = (m_end - m_begin + KC2 - 1) / KC2;
 
-  double F[8][4];
+  // Stage `step`: KC2 training rows of G and a1 for BQ queries (16-byte
+  // copies: the pitch ldm is even; the second half of a pair past the slab
+  // is filled with zeros) and of xt and wt for BD columns.
+  auto load_stage = [&](int step) {
+    if (step < n_steps) {
+      const int k0 = m_begin + step * KC2;
+      const int st = step % NS2;
+      {
+        constexpr int CPR = KC2 / 2, RPS = NTHR / CPR;
+        const int c = 2 * (tid % CPR);
+        const int bytes_m = min(16, max(0, 8 * (m_end - k0 - c)));
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+        for (int s = 0; s < BQ / RPS; ++s) {
+          const int r = tid / CPR + RPS * s;
+          const int bytes = b0 + r < B ? bytes_m : 0;
+          const size_t src = bytes ? (size_t)(b0 + r) * ldm + k0 + c : 0;
+          cp_async16(s_g + (st * BQ + r) * PA2 + c, gw + src, bytes);
+          cp_async16(s_a + (st * BQ + r) * PA2 + c, aw + src, bytes);
+        }
+      }
+      if (copy16) {
+        constexpr int CPR = BD / 2, RPS = NTHR / CPR;
+        const int c = 2 * (tid % CPR);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) F[n][i] = 0.0;
-
-  for (int k0 = m_begin; k0 < m_end; k0 += KC) {
-    for (int i = tid; i < BQ * KC; i += NTHR) {
-      const int r = i / KC, c = i % KC, m = k0 + c;
-      const bool ok = b0 + r < B && m < m_end;
-      s_g[r * PA + c] = ok ? gw[(size_t)(b0 + r) * M + m] : 0.0;
-      s_a[r * PA + c] = ok ? aw[(size_t)(b0 + r) * M + m] : 0.0;
-    }
-    for (int i = tid; i < KC * BN; i += NTHR) {
-      const int r = i / BN, c = i % BN, m = k0 + r, d = d0 + c;
-      const bool ok = m < m_end && d < D;
-      s_x[r * PB + c] = ok ? xt[(size_t)m * D + d] : 0.0;
-      s_w[r * PB + c] = ok ? wt[(size_t)m * D + d] : 0.0;
-    }
-    __syncthreads();
+        for (int s = 0; s < KC2 / RPS; ++s) {
+          const int r = tid / CPR + RPS * s;
+          const bool ok = k0 + r < m_end && d0 + c < D;
+          const size_t src = ok ? (size_t)(k0 + r) * D + d0 + c : 0;
+          cp_async16(s_x + (st * KC2 + r) * PB2 + c, xt + src, ok ? 16 : 0);
+          cp_async16(s_w + (st * KC2 + r) * PB2 + c, wt + src, ok ? 16 : 0);
+        }
+      } else {
+        constexpr int RPS = NTHR / BD;
+        const int c = tid % BD;
 #pragma unroll
-    for (int kk = 0; kk < KC / 4; ++kk) {
-      double ag[2], aa[2];
-      ag[0] = s_g[(16 * warp + g) * PA + 4 * kk + t];
-      ag[1] = s_g[(16 * warp + g + 8) * PA + 4 * kk + t];
-      aa[0] = s_a[(16 * warp + g) * PA + 4 * kk + t];
-      aa[1] = s_a[(16 * warp + g + 8) * PA + 4 * kk + t];
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        mma(F[n], ag, s_x[(4 * kk + t) * PB + 8 * n + g]);
-        mma(F[n], aa, s_w[(4 * kk + t) * PB + 8 * n + g]);
+        for (int s = 0; s < KC2 / RPS; ++s) {
+          const int r = tid / BD + RPS * s;
+          const bool ok = k0 + r < m_end && d0 + c < D;
+          const size_t src = ok ? (size_t)(k0 + r) * D + d0 + c : 0;
+          cp_async8(s_x + (st * KC2 + r) * PB2 + c, xt + src, ok ? 8 : 0);
+          cp_async8(s_w + (st * KC2 + r) * PB2 + c, wt + src, ok ? 8 : 0);
+        }
       }
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+
+  for (int s = 0; s < NS2 - 1; ++s) load_stage(s);
+
+  // While the first stages land: each query's sum of G over the training
+  // tiles, in tile order (8 tiles' loads at a time); the first column
+  // tile's first slab also writes it out for wide_finish, with E.
+  if (tid < BQ) {
+    const int b = b0 + tid;
+    const bool first = blockIdx.x == 0 && blockIdx.z == 0;
+    double gs = 0.0, es = 0.0;
+    if (b < B) {
+      for (int k0 = 0; k0 < n_mt; k0 += 8) {
+        double vg[8], ve[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const bool ok = k0 + k < n_mt;
+          vg[k] = ok ? gpart[(size_t)(k0 + k) * B + b] : 0.0;
+          ve[k] = ok && first ? epart[(size_t)(k0 + k) * B + b] : 0.0;
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          gs += vg[k];
+          es += ve[k];
+        }
+      }
+      if (first) {
+        gsum[b] = gs;
+        e_out[b] = es / q;
+      }
+    }
+    s_gs[tid] = gs;
   }
 
-  double* slab = part == nullptr
-                     ? nullptr
-                     : part + (size_t)blockIdx.z * ((size_t)B * D);
+  double F[2][8][4];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int b = b0 + 16 * warp + g + 8 * h;
-    if (b >= B) continue;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int d = d0 + 8 * n + 2 * t + j;
-        if (d >= D) continue;
-        const size_t i = (size_t)b * D + d;
-        if (slab == nullptr)
-          f_out[i] = fma(xq[i], gsum[b], -F[n][2 * h + j]);
-        else
-          slab[i] = F[n][2 * h + j];
-      }
+      for (int e = 0; e < 4; ++e) F[i][j][e] = 0.0;
+  const int ni = valid_tiles(B, b0 + 32 * wq, 16, 2);
+  const int nj = valid_tiles(D, d0 + 64 * wd, 8, 8);
+
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<NS2 - 2>();
+    __syncthreads();
+    load_stage(step + NS2 - 1);
+    if (ni == 0 || nj == 0) continue;
+    const int st = step % NS2;
+    const double* G = s_g + (st * BQ + 32 * wq) * PA2;
+    const double* A = s_a + (st * BQ + 32 * wq) * PA2;
+    const double* X = s_x + st * KC2 * PB2 + 64 * wd;
+    const double* W = s_w + st * KC2 * PB2 + 64 * wd;
+    if (ni == 2 && nj == 8)
+      force_products<true>(F, G, A, X, W, g, t, ni, nj);
+    else
+      force_products<false>(F, G, A, X, W, g, t, ni, nj);
+  }
+  cp_async_wait<0>();
+
+  // The F tile goes through shared memory (the ring is free now), so that
+  // the block writes it row by row, a column a thread, with 16 rows of xq
+  // loaded ahead: the store of a row waits for no load.  C
+  // fragment [i][j][2 h + c]: row 32 wq + 16 i + g + 8 h, column
+  // 64 wd + 8 j + 2 t + c.
+  __syncthreads();
+  double* s_f = smem;  // [BQ][PF]
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        store2(s_f + (32 * wq + 16 * i + g + 8 * h) * PF + 64 * wd + 8 * j +
+                   2 * t,
+               F[i][j][2 * h], F[i][j][2 * h + 1]);
+  __syncthreads();
+  double* slab = part == nullptr ? nullptr
+                                 : part + (size_t)blockIdx.z * ((size_t)B * D);
+  const int d = d0 + tid;
+  if (d >= D) return;
+  constexpr int RU = 16;  // rows in flight
+#pragma unroll 1
+  for (int r0 = 0; r0 < BQ; r0 += RU) {
+    double x[RU], gs[RU];
+#pragma unroll
+    for (int r = 0; r < RU; ++r) {
+      const int b = b0 + r0 + r;
+      const bool load = slab == nullptr && b < B;
+      x[r] = load ? xq[(size_t)b * D + d] : 0.0;
+      gs[r] = s_gs[r0 + r];
+    }
+#pragma unroll
+    for (int r = 0; r < RU; ++r) {
+      const int b = b0 + r0 + r;
+      if (b >= B) break;
+      const double f = s_f[(r0 + r) * PF + tid];
+      const size_t o = (size_t)b * D + d;
+      if (slab != nullptr)
+        slab[o] = f;
+      else
+        f_out[o] = fma(x[r], gs[r], -f);
+    }
   }
 }
 
@@ -692,53 +1120,100 @@ wide_finish(const double* __restrict__ xq, const double* __restrict__ gsum,
   f_out[i] = fma(xq[i], gsum[i / D], -s);
 }
 
-// scratch layout, in doubles: gw, aw (B M each), gpart, epart (n_mt B each),
-// gsum (B), and with n_split > 1 the slabs' partials (n_split B D)
+// the kernels' shared-memory attributes are set once per device
+cudaError_t configure() {
+  static bool done[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(wide_weights,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_weights());
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(wide_forces,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_forces());
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES) done[dev] = true;
+  return cudaSuccess;
+}
+
+// n rounded up to even, so that every array of the scratch starts 16-byte
+// aligned
+constexpr size_t even(size_t n) { return n + (n & 1); }
+
+// Scratch layout, in doubles, with ldm = M rounded up to even: gw, aw
+// (B ldm each); gpart, epart (n_mt B each), gsum (B), each rounded up to
+// even; the split tiles' partials (n_tail n_ksplit PART_DOUBLES); with
+// n_split > 1 the slabs' force partials (n_split B D).
 int launch(const double* xq, const double* xt, const double* wt,
            double* scratch, double* f_out, double* e_out, int B, int M,
-           int D, int n_split, int rows_per_split, double c0, double q,
-           cudaStream_t s) {
-  const int n_mt = (M + BN - 1) / BN, n_bt = (B + BQ - 1) / BQ;
-  double* gw = scratch;
-  double* aw = gw + (size_t)B * M;
-  double* gpart = aw + (size_t)B * M;
-  double* epart = gpart + (size_t)n_mt * B;
-  double* gsum = epart + (size_t)n_mt * B;
-  double* part = n_split > 1 ? gsum + B : nullptr;
-
-  wide_weights<<<dim3(n_mt, n_bt), NTHR, 0, s>>>(xq, xt, wt, gw, aw, gpart,
-                                                  epart, B, M, D, c0);
-  cudaError_t err = cudaGetLastError();
+           int D, int n_whole, int n_ksplit, int cols_per_slice, int n_split,
+           int rows_per_split, double c0, double q, cudaStream_t s) {
+  cudaError_t err = configure();
   if (err != cudaSuccess) return (int)err;
-  wide_row_sums<<<(B + 255) / 256, 256, 0, s>>>(gpart, epart, gsum, e_out, B,
-                                                n_mt, q);
+  const int ldm = M + (M & 1);
+  const int n_qt = (B + BQ - 1) / BQ, n_mt = (M + BN - 1) / BN;
+  const int n_dt = (D + BD - 1) / BD;
+  const int n_tail = n_qt * n_mt - n_whole;
+  const size_t w = (size_t)B * ldm;
+  double* gw = scratch;
+  double* aw = gw + w;
+  double* gpart = aw + w;
+  double* epart = gpart + even((size_t)n_mt * B);
+  double* gsum = epart + even((size_t)n_mt * B);
+  double* part = gsum + even(B);
+  double* fpart = part + (size_t)n_tail * n_ksplit * PART_DOUBLES;
+  const int copy16 = D % 2 == 0 && (uintptr_t)xq % 16 == 0 &&
+                     (uintptr_t)xt % 16 == 0 && (uintptr_t)wt % 16 == 0;
+
+  wide_weights<<<n_whole + n_tail * n_ksplit, NTHR, smem_weights(), s>>>(
+      xq, xt, wt, gw, aw, gpart, epart, part, B, M, D, ldm, n_qt, n_whole,
+      n_tail, n_ksplit, cols_per_slice, copy16, c0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  wide_forces<<<dim3((D + BN - 1) / BN, n_bt, n_split), NTHR, 0, s>>>(
-      xq, xt, wt, gw, aw, gsum, f_out, part, B, M, D, rows_per_split);
+  if (n_tail > 0) {
+    wide_combine<<<n_tail * (BQ / CQ), CQ * 32, 0, s>>>(
+        part, gw, aw, gpart, epart, B, M, ldm, n_qt, n_whole, n_ksplit, c0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  wide_forces<<<dim3(n_dt, n_qt, n_split), NTHR, smem_forces(), s>>>(
+      xq, xt, wt, gw, aw, gpart, epart, gsum, f_out, e_out,
+      n_split > 1 ? fpart : nullptr, B, M, D, ldm, n_mt, rows_per_split,
+      copy16, q);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return (int)err;
   const size_t total = (size_t)B * D;
   wide_finish<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
-      xq, gsum, part, f_out, B, D, n_split);
+      xq, gsum, fpart, f_out, B, D, n_split);
   return (int)cudaGetLastError();
 }
 
-// {queries per tile, training rows / columns per tile, depth per step,
-//  threads, shared bytes of wide_weights and of wide_forces, resident blocks
-//  per SM of each}
+// {queries per tile; pass 1: training rows per tile, columns per stage,
+//  stages; pass 2: columns per tile, training rows per stage, stages;
+//  threads; dynamic shared bytes of pass 1 and pass 2; resident blocks per
+//  SM of pass 1 and pass 2; queries per block of the combine}
 int geometry(int* out) {
+  cudaError_t err = configure();
+  if (err != cudaSuccess) return (int)err;
   out[0] = BQ;
   out[1] = BN;
-  out[2] = KC;
-  out[3] = NTHR;
-  out[4] = (int)smem_weights();
-  out[5] = (int)smem_forces();
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[6], wide_weights, NTHR, 0);
+  out[2] = KC1;
+  out[3] = NS1;
+  out[4] = BD;
+  out[5] = KC2;
+  out[6] = NS2;
+  out[7] = NTHR;
+  out[8] = (int)smem_weights();
+  out[9] = (int)smem_forces();
+  out[12] = CQ;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[10], wide_weights, NTHR, smem_weights());
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[7], wide_forces, NTHR, 0);
+      &out[11], wide_forces, NTHR, smem_forces());
 }
 
 }  // namespace wide
@@ -778,25 +1253,26 @@ extern "C" int mlff_fused_predict_geometry(int D, int* out) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The wide route, for any D (the caller takes it for D > 129): three or four
-// launches on `stream`, returning cudaGetLastError().  `scratch` holds
-// 2 B M + 2 ceil(M / 64) B + B doubles, plus n_split B D with n_split > 1;
-// slab s is the training rows [s * rows_per_split, (s + 1) * rows_per_split).
+// The wide route, for any D (the caller takes it for D > 129): two to four
+// launches on `stream`, returning cudaGetLastError().  Pass 1 takes its
+// first n_whole tiles whole and cuts D for each later one into n_ksplit
+// slices of cols_per_slice columns (a multiple of 16); pass 2 cuts the
+// training rows into n_split slabs of rows_per_split (a multiple of 8).
+// `scratch` holds what wide::launch lays out.
 extern "C" int mlff_fused_predict_wide(const double* xq, const double* xt,
                                        const double* wt, double* scratch,
                                        double* f_out, double* e_out, int B,
-                                       int M, int D, int n_split,
-                                       int rows_per_split, double c0,
-                                       double q, void* stream) {
-  return wide::launch(xq, xt, wt, scratch, f_out, e_out, B, M, D, n_split,
-                      rows_per_split, c0, q,
-                      static_cast<cudaStream_t>(stream));
+                                       int M, int D, int n_whole,
+                                       int n_ksplit, int cols_per_slice,
+                                       int n_split, int rows_per_split,
+                                       double c0, double q, void* stream) {
+  return wide::launch(xq, xt, wt, scratch, f_out, e_out, B, M, D, n_whole,
+                      n_ksplit, cols_per_slice, n_split, rows_per_split, c0,
+                      q, static_cast<cudaStream_t>(stream));
 }
 
 // The wide route's geometry, for the caller's plan to be held against:
-// out[0..7] = queries per tile, training rows (pass 1) and columns (pass 2)
-// per tile, rows per staged step, threads per block, static shared bytes of
-// the two passes, resident blocks per SM of the two passes.
+// out[0..12] as wide::geometry fills them.
 extern "C" int mlff_fused_predict_wide_geometry(int* out) {
   return wide::geometry(out);
 }

@@ -20,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -98,6 +99,45 @@ def ptxas_lines(report: str) -> list:
     registers or its spills."""
     return [ln.strip() for ln in report.splitlines()
             if "registers" in ln or "spill" in ln or "Compiling" in ln]
+
+
+def _unmangled(name: str) -> str:
+    """The function's own identifier in an Itanium-mangled name:
+    ``wide_forces`` for ``_ZN12_GLOBAL__N_14wide11wide_forcesEPKd...``,
+    ``contract_partial`` for ``_ZN12_GLOBAL__N_116contract_partialILi5E...``.
+    """
+    i, last = 2 + (name[2:3] == "N"), name
+    while i < len(name) and name[i].isdigit():
+        j = i
+        while name[j].isdigit():
+            j += 1
+        n = int(name[i:j])
+        last, i = name[j:j + n], j + n
+    return last
+
+
+def kernel_resources(report: str) -> dict:
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from an nvcc
+    ``-Xptxas -v`` report, each kernel under its unmangled identifier (the
+    instantiations of a template share one entry, the last reported)."""
+    out, name = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(_Z[^']+)'", ln)
+        if m:
+            name = _unmangled(m.group(1))
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def spill_lines(report: str) -> list:

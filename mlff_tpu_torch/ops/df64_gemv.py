@@ -12,9 +12,9 @@ operations: on an H100 the bytes bound them by ~9x, and the instruction
 slots come to about a third of that bound.  So each pass is one launch of a
 persistent grid, one block per SM, that streams B through a ring of
 shared-memory stages filled by asynchronous bulk copies (16-byte aligned
-row segments, which is why B must be 16-byte aligned and why the copies
-apply when ``m % 4 == 0``; for other m the block fills a stage with plain
-loads) and read back as 16-byte words, a lane owning four neighbouring
+row segments, which is why the kernel is given a contiguous, 16-byte
+aligned B, a copy where the caller's is not, and why the copies apply when
+``m % 4 == 0``; for other m the block fills a stage with plain loads) and read back as 16-byte words, a lane owning four neighbouring
 columns.  ``plan`` holds that geometry; the kernel source mirrors its
 constants.  ``df64_bt_v`` sums each (row slab, column group) unit in one
 block; the slabs' partials meet in a fixed tree, each node added by the
@@ -144,11 +144,8 @@ def _check(Bh: torch.Tensor, Bl: torch.Tensor, vec: torch.Tensor, axis: int):
     for name, t in (("Bh", Bh), ("Bl", Bl)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 2-D tensor")
-        if t.data_ptr() % 16 != 0:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernels "
-                             "copy 16-byte aligned row segments)")
+        if t.dim() != 2:
+            raise ValueError(f"{name} must be a 2-D tensor")
     if vec.dtype != torch.float64 or vec.dim() != 1:
         raise TypeError(f"the vector must be 1-D float64, got {vec.dtype} "
                         f"with shape {tuple(vec.shape)}")
@@ -211,10 +208,12 @@ def _bt_v_scratch(index: int, stream: int, p: Plan) -> tuple:
     return part[0], part[1], tickets
 
 
-def _aligned(vec: torch.Tensor) -> torch.Tensor:
-    """vec, contiguous and 16-byte aligned (a copy if it was not)."""
-    vec = vec.contiguous()
-    return vec if vec.data_ptr() % 16 == 0 else vec.clone()
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, contiguous and 16-byte aligned (a copy if it was not): the kernels
+    copy 16-byte aligned row segments of B and read the vector in 16-byte
+    words."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -234,7 +233,7 @@ def df64_bt_v(Bh: torch.Tensor, Bl: torch.Tensor,
     dev = Bh.device
     if n == 0 or m == 0:
         return torch.zeros(m, dtype=torch.float64, device=dev)
-    u = _launch_bt_v(_library(), Bh, Bl, _aligned(v))
+    u = _launch_bt_v(_library(), _aligned(Bh), _aligned(Bl), _aligned(v))
     df64_bt_v.launches += 1
     return u
 
@@ -267,7 +266,7 @@ def df64_b_x(Bh: torch.Tensor, Bl: torch.Tensor,
     dev = Bh.device
     if n == 0 or m == 0:
         return torch.zeros(n, dtype=torch.float64, device=dev)
-    y = _launch_b_x(_library(), Bh, Bl, _aligned(x))
+    y = _launch_b_x(_library(), _aligned(Bh), _aligned(Bl), _aligned(x))
     df64_b_x.launches += 1
     return y
 

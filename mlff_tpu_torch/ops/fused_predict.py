@@ -17,7 +17,8 @@ their tiles.  Wider descriptors (molecules of 17 atoms and more) take the
 kernel's wide route: two passes of hand-written FP64 tensor-core products
 that meet in a (B, M) pair of f64 weights (G = a dot and a1) in device
 memory, as the TPU kernel's caller meets it in an f64 (B, M) distance
-array.
+array; where the training set is small the first pass also splits the
+descriptor axis across the SMs.
 The arithmetic is f64, not the TPU kernel's f32: the cotangents w~ of a
 lam = 1e-10 ridge solve are orders of magnitude larger than the forces they
 sum to, and an f32 contraction of a trained model misses the f64 forces by
@@ -25,7 +26,8 @@ far more than the tolerance of the f32 path
 (``tests/test_torch_fused_predict.py`` shows it on the JAX kernel itself).
 
 ``plan`` holds the launch geometry (which of the kernel's three widths takes
-D, or the wide route, the query tiles, the slabs of the training axis); the
+D, or the wide route, the query tiles, the slabs of the training axis and,
+on the wide route, the slices of the descriptor axis); the
 kernel source mirrors its constants and the wrapper holds the two against
 each other when the library is loaded.  ``desc_forces_fused`` launches the kernel for CUDA
 tensors (or raises) and runs the plain PyTorch version
@@ -91,27 +93,46 @@ class Plan:
 
 @dataclass(frozen=True)
 class WideGeometry:
-    """The wide route (D > MAX_D): tiles of ``queries`` x ``tile`` pairs
-    (pass 1) and ``queries`` x ``tile`` forces (pass 2), ``depth`` rows or
-    columns staged per step."""
+    """The wide route (D > MAX_D).  Pass 1: tiles of ``queries`` x ``tile``
+    pairs, ``depth`` descriptor columns per stage; pass 2: tiles of
+    ``queries`` x ``cols`` forces, ``rows`` training rows per stage; each a
+    ring of ``stages`` stages, ``threads`` threads a block,
+    ``blocks_per_sm`` blocks resident per SM.  ``combine_queries``: queries
+    per block of the combine kernel."""
 
     queries: int = 64
     tile: int = 64
     depth: int = 16
+    cols: int = 128
+    rows: int = 8
+    stages: int = 3
     threads: int = 128
+    combine_queries: int = 8
+    blocks_per_sm: int = 2
 
     @property
     def smem_weights(self) -> int:
-        """Static shared bytes of pass 1: the staged xq, xt, wt and the row
-        terms."""
-        return 8 * ((self.queries + 2 * self.tile) * (self.depth + 4)
-                    + self.queries + 2 * self.tile)
+        """Dynamic shared bytes of pass 1: the ring of xq, xt, wt stages
+        (rows of ``depth + 4`` doubles), the row terms and the tile's row
+        sums."""
+        return 8 * (self.stages * (self.queries + 2 * self.tile)
+                    * (self.depth + 4) + self.queries + 2 * self.tile
+                    + 4 * self.queries)
 
     @property
     def smem_forces(self) -> int:
-        """Static shared bytes of pass 2: G, a1, xt and wt stages."""
-        return 8 * (2 * self.queries * (self.depth + 4)
-                    + 2 * self.depth * (self.tile + 4))
+        """Dynamic shared bytes of pass 2: the ring of G, a1 stages (rows of
+        ``rows + 4`` doubles) and xt, wt stages (rows of ``cols + 4``), and
+        the queries' sums of G."""
+        return 8 * (self.stages * (2 * self.queries * (self.rows + 4)
+                                   + 2 * self.rows * (self.cols + 4))
+                    + self.queries)
+
+    def library_tuple(self) -> tuple[int, ...]:
+        """What ``library_wide_geometry`` reports but the resident blocks."""
+        return (self.queries, self.tile, self.depth, self.stages, self.cols,
+                self.rows, self.stages, self.threads, self.smem_weights,
+                self.smem_forces, self.combine_queries)
 
 
 WIDE = WideGeometry()
@@ -120,26 +141,46 @@ WIDE = WideGeometry()
 WIDE_WEIGHT_DOUBLES = 2**25
 
 
+def _even(n: int) -> int:
+    return n + (n & 1)
+
+
 @dataclass(frozen=True)
 class WidePlan:
-    """Launch geometry of one wide pass over ``b_chunk`` queries at most:
-    pass 1 on (n_mtiles, n_qtiles) blocks, pass 2 on (n_dtiles, n_qtiles,
-    n_split) blocks, slab s of pass 2 the training rows
-    [s * rows_per_split, (s + 1) * rows_per_split)."""
+    """Launch geometry of one wide pass over ``b_chunk`` queries at most.
+    Pass 1's tiles, n_qtiles x n_mtiles in order t = query tile + n_qtiles
+    training tile: the first ``n_whole`` over all of D, each later one (the
+    last, partial wave's) in ``n_ksplit`` slices of ``cols_per_slice``
+    descriptor columns (slice y: [y cols_per_slice, (y + 1)
+    cols_per_slice)).  Pass 2 on (n_dtiles, n_qtiles, n_split) blocks, slab
+    s the training rows [s rows_per_split, (s + 1) rows_per_split)."""
 
     geometry: WideGeometry
     b_chunk: int
     n_qtiles: int
     n_mtiles: int
+    n_whole: int
+    n_ksplit: int
+    cols_per_slice: int   # whole stages of ``depth`` columns
     n_dtiles: int
     n_split: int
-    rows_per_split: int   # whole steps of ``depth`` rows
+    rows_per_split: int   # whole stages of ``rows`` rows
+
+    @property
+    def n_tail(self) -> int:
+        """Pass 1's split tiles."""
+        return self.n_qtiles * self.n_mtiles - self.n_whole
 
     def scratch_doubles(self, B: int, M: int, D: int) -> int:
-        """Scratch of a pass over B <= b_chunk queries: the two (B, M)
-        weights, the two (n_mtiles, B) row partials, sum G (B), and the
-        slabs' (B, D) force partials when there are several."""
-        return (2 * B * M + 2 * self.n_mtiles * B + B
+        """Scratch of a pass over B <= b_chunk queries, as the kernel lays it
+        out (ldm = M rounded up to even): the two (B, ldm) weights; the two
+        (n_mtiles, B) row partials and sum G (B), each rounded up to even;
+        a partial S, Gram and row terms per slice of each split tile; with
+        several slabs their (B, D) force partials."""
+        geo = self.geometry
+        part = 2 * geo.queries * geo.tile + geo.queries + 2 * geo.tile
+        return (2 * B * _even(M) + 2 * _even(self.n_mtiles * B) + _even(B)
+                + self.n_tail * self.n_ksplit * part
                 + (self.n_split * B * D if self.n_split > 1 else 0))
 
 
@@ -151,24 +192,37 @@ def geometry_for(D: int) -> Geometry | WideGeometry:
     return next(g for g in GEOMETRIES if D <= g.width)
 
 
-def wide_plan(B: int, M: int, D: int, n_sm: int) -> WidePlan:
+def wide_plan(B: int, M: int, D: int, n_sm: int,
+              geo: WideGeometry = WIDE) -> WidePlan:
     """The wide route for B >= 1 queries: chunks of queries whose weights fit
-    WIDE_WEIGHT_DOUBLES, and for pass 2 as many slabs of the training axis
-    as give two blocks per SM."""
-    geo = WIDE
-    b_chunk = max(geo.queries, min(WIDE_WEIGHT_DOUBLES // (2 * M),
+    WIDE_WEIGHT_DOUBLES.  A wave is ``n_sm`` SMs of ``geo.blocks_per_sm``
+    blocks.  Pass 1: the tiles of the last wave, where it is not full (all
+    tiles, where they fill less than one), are each cut into as many slices
+    of D as fill that wave; pass 2: where its tiles fill less than a wave,
+    slabs of the training rows likewise."""
+    wave = n_sm * geo.blocks_per_sm
+    b_chunk = max(geo.queries, min(WIDE_WEIGHT_DOUBLES // (2 * _even(M)),
                                    MAX_GRID_Y * geo.queries)
                   // geo.queries * geo.queries)
     Bc = min(B, b_chunk)
     n_qtiles = -(-Bc // geo.queries)
-    n_dtiles = -(-D // geo.tile)
-    n_steps = -(-M // geo.depth)
-    n_split = max(1, min(n_steps, 2 * n_sm // (n_qtiles * n_dtiles),
-                         MAX_GRID_Y))
-    rows = -(-n_steps // n_split) * geo.depth
+    n_mtiles = -(-M // geo.tile)
+    tiles = n_qtiles * n_mtiles
+    tail = tiles % wave
+    k_steps = -(-D // geo.depth)
+    n_ksplit = max(1, min(k_steps, wave // tail)) if tail else 1
+    cols = -(-k_steps // n_ksplit) * geo.depth
+    n_ksplit = -(-D // cols)
+    n_dtiles = -(-D // geo.cols)
+    m_steps = -(-M // geo.rows)
+    n_split = max(1, min(m_steps, wave // (n_qtiles * n_dtiles), MAX_GRID_Y))
+    rows = -(-m_steps // n_split) * geo.rows
     return WidePlan(geometry=geo, b_chunk=b_chunk, n_qtiles=n_qtiles,
-                    n_mtiles=-(-M // geo.tile), n_dtiles=n_dtiles,
-                    n_split=-(-M // rows), rows_per_split=rows)
+                    n_mtiles=n_mtiles,
+                    n_whole=tiles - tail if n_ksplit > 1 else tiles,
+                    n_ksplit=n_ksplit, cols_per_slice=cols,
+                    n_dtiles=n_dtiles, n_split=-(-M // rows),
+                    rows_per_split=rows)
 
 
 def plan_for(geo: Geometry, B: int, M: int, n_sm: int) -> Plan:
@@ -235,7 +289,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mlff_fused_predict_geometry.argtypes = [ctypes.c_int,
                                                 ctypes.c_void_p]
     lib.mlff_fused_predict_geometry.restype = ctypes.c_int
-    lib.mlff_fused_predict_wide.argtypes = lib.mlff_fused_predict.argtypes
+    lib.mlff_fused_predict_wide.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        + [ctypes.c_double, ctypes.c_double, ctypes.c_void_p])
     lib.mlff_fused_predict_wide.restype = ctypes.c_int
     lib.mlff_fused_predict_wide_geometry.argtypes = [ctypes.c_void_p]
     lib.mlff_fused_predict_wide_geometry.restype = ctypes.c_int
@@ -255,15 +311,24 @@ def library_geometry(lib: ctypes.CDLL, D: int) -> tuple[int, int, int, int]:
 
 
 def library_wide_geometry(lib: ctypes.CDLL) -> tuple[int, ...]:
-    """(queries per tile, rows / columns per tile, depth per step, threads,
-    shared bytes of pass 1 and pass 2, resident blocks per SM of pass 1 and
-    pass 2) of the wide route of ``lib``, on the current card."""
-    out = (ctypes.c_int * 8)()
+    """The wide route of ``lib`` on the current card: (queries per tile;
+    pass 1's training rows per tile, columns per stage, stages; pass 2's
+    columns per tile, training rows per stage, stages; threads; dynamic
+    shared bytes of pass 1 and pass 2; resident blocks per SM of pass 1 and
+    pass 2; queries per block of the combine)."""
+    out = (ctypes.c_int * 13)()
     err = lib.mlff_fused_predict_wide_geometry(ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"fused_predict wide geometry query failed: CUDA "
                            f"error {err}")
     return tuple(out)
+
+
+def wide_geometry_matches(reported: tuple[int, ...]) -> bool:
+    """Whether a library's ``library_wide_geometry`` is ``WIDE`` with at
+    least one block of each pass resident per SM."""
+    return (reported[:10] + reported[12:] == WIDE.library_tuple()
+            and min(reported[10:12]) >= 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -273,9 +338,7 @@ def _library() -> ctypes.CDLL:
     out."""
     lib = _bind(cuda_build.load("fused_predict"))
     wide = library_wide_geometry(lib)
-    if (wide[:6] != (WIDE.queries, WIDE.tile, WIDE.depth, WIDE.threads,
-                     WIDE.smem_weights, WIDE.smem_forces)
-            or min(wide[6:]) < 1):
+    if not wide_geometry_matches(wide):
         raise RuntimeError(f"csrc/fused_predict.cu and ops/fused_predict.py "
                            f"disagree on the wide route: kernel {wide}, plan "
                            f"{WIDE}")
@@ -358,20 +421,23 @@ def _launch(lib: ctypes.CDLL, Xq_query, Xqt, wt, sig: float, p: Plan):
 def _launch_wide(lib: ctypes.CDLL, Xq_query, Xqt, wt, sig: float,
                  p: WidePlan):
     """The wide route of one call, one pass per chunk of ``p.b_chunk``
-    queries, on the current stream of the tensors' device."""
+    queries, on the current stream of the tensors' device: a call that fits
+    one chunk runs as ``p`` says, the chunks of a larger one as their own
+    plans say."""
     (B, D), M, dev = Xq_query.shape, Xqt.shape[0], Xq_query.device
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     f_out = torch.empty((B, D), dtype=torch.float64, device=dev)
     e_out = torch.empty((B,), dtype=torch.float64, device=dev)
     for b0 in range(0, B, p.b_chunk):
         Bc = min(p.b_chunk, B - b0)
-        pc = plan(Bc, M, D, _sm_count(dev.index))
+        pc = p if Bc == B else plan(Bc, M, D, _sm_count(dev.index))
         scratch = _scratch(dev.index, stream, pc.scratch_doubles(Bc, M, D))
         err = lib.mlff_fused_predict_wide(
             Xq_query[b0:].data_ptr(), Xqt.data_ptr(), wt.data_ptr(),
             scratch.data_ptr(), f_out[b0:].data_ptr(), e_out[b0:].data_ptr(),
-            Bc, M, D, pc.n_split, pc.rows_per_split, 5.0 / (3.0 * sig**2),
-            SQRT5 / sig, stream)
+            Bc, M, D, pc.n_whole, pc.n_ksplit, pc.cols_per_slice,
+            pc.n_split, pc.rows_per_split, 5.0 / (3.0 * sig**2), SQRT5 / sig,
+            stream)
         if err != 0:
             raise RuntimeError(f"fused_predict wide launch failed: CUDA "
                                f"error {err}")

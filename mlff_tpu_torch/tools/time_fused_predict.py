@@ -23,6 +23,17 @@ salicylic acid (D = 120) for the kernel's wider instantiations.
 (``mlff_fused_predict``, ``mlff_fused_predict_geometry``): each is built with
 the same flags, planned with its own geometry, checked and timed in the same
 turns, so that two designs are compared within one run on one card.
+
+``--wide`` runs the kernel's wide route (D > 129) instead, at the shapes
+``chip_smoke.py`` times (aspirin, catcher, the full row at D = 210 and
+3828, the nanotube), each at B = 512 and B = 1: held to the plain version
+within 1e-12 relative with the same bits twice, then timed in turns with
+the plain version and the four dense products as ``torch.matmul`` and,
+where the plan splits the tiles of pass 1's last wave over D, the same
+call with them unsplit (``unsplit_ms``).
+There ``--variant`` names sources with the wide route's C interface
+(``mlff_fused_predict_wide``, ``mlff_fused_predict_wide_geometry``), each
+planned with the tiles and resident blocks its library reports.
 ``--variant-with-dist`` does the same for a source with the first kernel's
 interface, which took the (B, M) distances as an argument, 32-query tiles
 and 64-row stages: its timed call includes the f64 Gram-trick distances and
@@ -37,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import re
 import subprocess
@@ -74,6 +86,17 @@ TIMED = ("full", "one", "held_out", "uracil", "toluene", "salicylic")
 HOST_TIMED = ("one", "held_out")
 
 
+# the wide route: (label, (molecule, training geometries) or None for
+# random operands, M, D), chip_smoke.py's WIDE_TIMED, each at these B
+WIDE_CASES = (("aspirin", ("aspirin", 250), 1500, 210),
+              ("catcher", ("catcher", 119), 119, 3828),
+              ("full_210", ("aspirin", 1166), 6996, 210),
+              ("full_3828", None, 6996, 3828),
+              ("nanotube", ("nanotube", 14), 14, 68265))
+WIDE_BATCHES = (512, 1)
+WIDE_RTOL = 1e-12
+
+
 def emit(**fields) -> None:
     print(json.dumps(fields), flush=True)
 
@@ -101,6 +124,83 @@ def operands(molecule: str, n_train: int, n_query: int, device):
         device=device)
     wt = knl.perm_expand_w(w, P_idx).contiguous()
     return Xq[n_train:].contiguous(), Xqt, wt
+
+
+def random_operands(B: int, M: int, D: int, seed: int, device):
+    """(Xq (B, D), Xqt (M, D), wt (M, D)), seeded: descriptors in
+    [0.05, 0.15), standard normal cotangents."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def uniform(*shape):
+        return 0.05 + 0.1 * torch.rand(shape, generator=gen,
+                                       dtype=torch.float64, device=device)
+
+    return uniform(B, D), uniform(M, D), torch.randn(
+        (M, D), generator=gen, dtype=torch.float64, device=device)
+
+
+def wide(lib, variants: dict, n_sm: int, check_only: bool) -> bool:
+    """The wide route of ``lib`` and of each variant library at WIDE_CASES:
+    checked, then timed in turns.  Returns whether all
+    agreed with the plain version and with themselves."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    calls = {"kernel": (lib, fp.WIDE), **variants}
+    failed = False
+    for label, source, M, D in WIDE_CASES:
+        if source is None:
+            Xq_all, Xqt, wt = random_operands(max(WIDE_BATCHES), M, D, 7, dev)
+        else:
+            Xq_all, Xqt, wt = operands(*source, max(WIDE_BATCHES), dev)
+        for B in WIDE_BATCHES:
+            ops = (Xq_all[:B].contiguous(), Xqt, wt)
+            p = fp.plan(B, M, D, n_sm)
+            fns = {name: (lambda v=v, q=fp.wide_plan(B, M, D, n_sm, geo):
+                          fp._launch_wide(v, *ops, SIG, q))
+                   for name, (v, geo) in calls.items()}
+            if p.n_whole > 0 and p.n_tail > 0:
+                # the same call with the last wave's tiles not split
+                whole = dataclasses.replace(
+                    p, n_whole=p.n_qtiles * p.n_mtiles, n_ksplit=1,
+                    cols_per_slice=-(-D // p.geometry.depth)
+                    * p.geometry.depth)
+                fns["unsplit"] = lambda: fp._launch_wide(lib, *ops, SIG,
+                                                         whole)
+            want = fp.desc_forces_fused_ref(*ops, SIG)
+            row = {"case": label, "B": B, "M": M, "D": D,
+                   "n_whole": p.n_whole, "n_tail": p.n_tail,
+                   "n_ksplit": p.n_ksplit, "n_split": p.n_split}
+            for name, fn in fns.items():
+                got, again = fn(), fn()
+                torch.cuda.synchronize()
+                errs = [float((g - w).abs().max() / w.abs().max())
+                        for g, w in zip(got, want)]
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                row[f"{name}_rel_err"] = max(errs)
+                row[f"{name}_same_bits_twice"] = same
+                failed = failed or max(errs) > WIDE_RTOL or not same
+            if not check_only:
+                gen = torch.Generator(device=dev).manual_seed(3)
+                G, a1 = (torch.rand((B, M), generator=gen,
+                                    dtype=torch.float64, device=dev)
+                         for _ in range(2))
+                turns = time_in_turns(torch, {
+                    "plain": lambda: fp.desc_forces_fused_ref(*ops, SIG),
+                    "products": lambda: (ops[0] @ wt.T, ops[0] @ Xqt.T,
+                                         G @ Xqt, a1 @ wt),
+                    **fns}, lead_ms=LEAD_MS)
+                bound_s, row["bound_by"] = fp.bound_seconds(
+                    B, M, D, F64_PEAK, MEM_RATE)
+                row["bound_ms"] = bound_s * 1e3
+                for name, (ms, spread) in turns.items():
+                    row[f"{name}_ms"], row[f"{name}_ms_spread"] = ms, spread
+                for name in fns:
+                    row[f"{name}_share_of_bound"] = (row["bound_ms"]
+                                                     / row[f"{name}_ms"])
+                del G, a1
+            emit(**row)
+        del Xq_all, Xqt, wt
+        torch.cuda.empty_cache()
+    return not failed
 
 
 def errors(got, want) -> dict:
@@ -190,6 +290,14 @@ def f64_rates(n_sm: int) -> None:
              tflops=n_sm * warps * iters * 8 * flop / ms / 1e9)
 
 
+def print_card() -> None:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--check-only", action="store_true")
@@ -198,6 +306,7 @@ def main() -> None:
     ap.add_argument("--variant-with-dist", action="append", default=[],
                     metavar="NAME=SOURCE.cu")
     ap.add_argument("--f64-rates", action="store_true")
+    ap.add_argument("--wide", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("time_fused_predict: no CUDA device")
@@ -212,7 +321,29 @@ def main() -> None:
          sass=dmma_counts(cuda_build.library_path("fused_predict")))
     lib = fp._library()
     emit(geometry={g.width: fp.library_geometry(lib, g.width)
-                   for g in fp.GEOMETRIES})
+                   for g in fp.GEOMETRIES},
+         wide_geometry=fp.library_wide_geometry(lib),
+         resources=cuda_build.kernel_resources(
+             reports.get("fused_predict", "")))
+    if args.wide:
+        variants = {}
+        for spec in args.variant:
+            name, _, source = spec.partition("=")
+            vlib, report = cuda_build.build_variant(name, source)
+            vlib = fp._bind(vlib)
+            geo = fp.library_wide_geometry(vlib)
+            emit(variant=name, wide_geometry=geo,
+                 resources=cuda_build.kernel_resources(report))
+            variants[name] = (vlib, fp.WideGeometry(
+                queries=geo[0], tile=geo[1], depth=geo[2], stages=geo[3],
+                cols=geo[4], rows=geo[5], threads=geo[7],
+                combine_queries=geo[12], blocks_per_sm=min(geo[10:12])))
+        ok = wide(lib, variants, n_sm, args.check_only)
+        print_card()
+        if not ok:
+            sys.exit("time_fused_predict: the wide route disagrees with its "
+                     "plain version or with itself")
+        return
     # name -> callable (Xq, Xqt, wt) -> (F, E)
     calls = {"kernel": lambda *a: fp._launch(
         lib, *a, SIG, fp.plan(a[0].shape[0], a[1].shape[0], a[0].shape[1],
@@ -276,10 +407,7 @@ def main() -> None:
                 row["host_ms"] = host_ms_per_call(
                     torch, lambda: fp.desc_forces_fused(*ops, SIG))
         emit(**row)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print_card()
     if failed:
         sys.exit("time_fused_predict: a kernel disagrees with its plain "
                  "version or with itself")

@@ -44,6 +44,7 @@ df64 kernels once per apply, and raises when the profiler records no
 device activity.
 """
 
+import dataclasses
 import time
 
 import numpy as np
@@ -220,11 +221,64 @@ def test_wide_kernel_gives_the_same_bits_twice(by_wide_width, D):
         assert torch.equal(F_1, F_2) and torch.equal(E_1, E_2)
 
 
+def _with_ksplit(p, n_ksplit: int, D: int):
+    """``p`` with D cut into ``n_ksplit`` slices of whole stages (fewer where
+    D has fewer stages) for every tile of pass 1."""
+    steps = -(-D // p.geometry.depth)
+    cols = -(-steps // min(n_ksplit, steps)) * p.geometry.depth
+    n_ksplit = -(-D // cols)
+    return dataclasses.replace(
+        p, n_ksplit=n_ksplit, cols_per_slice=cols,
+        n_whole=0 if n_ksplit > 1 else p.n_qtiles * p.n_mtiles)
+
+
+@pytest.mark.parametrize("n_ksplit", [1, 2, 5, 9, 64])
+@pytest.mark.parametrize("B", [1, 7])
+@pytest.mark.parametrize("D", [130, 210, 3828])
+def test_wide_kernel_at_each_split_of_d(by_wide_width, D, B, n_ksplit):
+    """Pass 1 with every tile's D cut into 1, 2, 5, 9 or 64 slices (D = 130
+    has 9 stages), ragged D and M (M not a multiple of the 64-row tile):
+    within 1e-12 of the plain version, the same bits twice."""
+    Xq, Xqt, wt = by_wide_width[D]
+    args = (Xq[:B].contiguous(), Xqt, wt)
+    p = _with_ksplit(fp.plan(B, Xqt.shape[0], D, fp._sm_count(0)), n_ksplit,
+                     D)
+    assert (p.n_ksplit > 1) == (n_ksplit > 1)
+    lib = fp._library()
+    F_k, E_k = fp._launch_wide(lib, *args, SIG, p)
+    F_2, E_2 = fp._launch_wide(lib, *args, SIG, p)
+    F_r, E_r = fp.desc_forces_fused_ref(*args, SIG)
+    torch.cuda.synchronize()
+    assert Xqt.shape[0] % 64 != 0
+    assert _rel_err(F_k, F_r) <= 1e-12 and _rel_err(E_k, E_r) <= 1e-12
+    assert torch.equal(F_k, F_2) and torch.equal(E_k, E_2)
+
+
+@pytest.mark.parametrize("D,n_sm", [(210, 7), (3828, 4)])
+def test_wide_kernel_splits_only_the_last_waves_tiles(by_wide_width, D,
+                                                      n_sm):
+    """513 queries against a ragged M, planned for a card of a few SMs:
+    pass 1 runs whole waves of whole tiles and splits the tiles of the last
+    wave; within 1e-12 of the plain version and of the unsplit plan."""
+    Xq, Xqt, wt = by_wide_width[D]
+    M = Xqt.shape[0]
+    p = fp.wide_plan(513, M, D, n_sm)
+    assert p.n_whole > 0 and p.n_tail > 0 and p.n_ksplit > 1
+    lib = fp._library()
+    F_k, E_k = fp._launch_wide(lib, Xq, Xqt, wt, SIG, p)
+    F_1, E_1 = fp._launch_wide(lib, Xq, Xqt, wt, SIG, _with_ksplit(p, 1, D))
+    F_r, E_r = fp.desc_forces_fused_ref(Xq, Xqt, wt, SIG)
+    torch.cuda.synchronize()
+    assert _rel_err(F_k, F_r) <= 1e-12 and _rel_err(E_k, E_r) <= 1e-12
+    assert _rel_err(F_k, F_1) <= 1e-12 and _rel_err(E_k, E_1) <= 1e-12
+
+
 def test_wide_kernel_chunks_the_queries(by_wide_width, monkeypatch):
     """A call whose weights pass the budget goes in chunks of queries, the
-    last one ragged."""
+    last one ragged.  The weights' rows are M rounded up to even."""
     Xq, Xqt, wt = by_wide_width[210]
-    monkeypatch.setattr(fp, "WIDE_WEIGHT_DOUBLES", 2 * 128 * Xqt.shape[0])
+    M = Xqt.shape[0]
+    monkeypatch.setattr(fp, "WIDE_WEIGHT_DOUBLES", 2 * 128 * (M + M % 2))
     fp.plan.cache_clear()
     try:
         assert fp.plan(513, Xqt.shape[0], 210, 132).b_chunk == 128
@@ -246,10 +300,9 @@ def test_kernel_geometry_is_the_plans(small):
                                             geo.smem_bytes)
         assert resident >= geo.blocks_per_sm
     wide = fp.library_wide_geometry(lib)
-    assert wide[:6] == (fp.WIDE.queries, fp.WIDE.tile, fp.WIDE.depth,
-                        fp.WIDE.threads, fp.WIDE.smem_weights,
-                        fp.WIDE.smem_forces)
-    assert min(wide[6:]) >= 2
+    assert fp.wide_geometry_matches(wide)
+    assert wide[:10] + wide[12:] == fp.WIDE.library_tuple()
+    assert min(wide[10:12]) >= fp.WIDE.blocks_per_sm
 
 
 def test_otf_matvec_matches_the_cached_matvec(small, monkeypatch):
@@ -385,6 +438,35 @@ def test_df64_bt_v_gives_the_same_bits_twice(small, shape):
     first = df64_gemv.df64_bt_v(Bh, Bl, v)
     for _ in range(3):
         assert torch.equal(df64_gemv.df64_bt_v(Bh, Bl, v), first)
+
+
+@pytest.mark.parametrize("bad", ["misaligned", "non_contiguous"])
+@pytest.mark.parametrize("kernel", ["bt_v", "b_x"])
+def test_df64_kernel_takes_a_misaligned_or_non_contiguous_b(small, kernel,
+                                                           bad):
+    """A B that is not 16-byte aligned, or not contiguous, gives the same
+    bits as the aligned contiguous B: the wrapper hands the kernel a copy."""
+    n, m = 1030, 516
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    B = torch.randn((n, m), generator=gen, dtype=torch.float64, device="cuda")
+    Bh, Bl = df64.split_f64(B)
+    if bad == "misaligned":
+        flat = torch.zeros(n * m + 1, dtype=torch.float32, device="cuda")
+        flat[1:] = Bh.reshape(-1)
+        Bh_bad = flat[1:].view(n, m)
+        assert Bh_bad.is_contiguous() and Bh_bad.data_ptr() % 16 != 0
+    else:
+        Bh_bad = torch.cat([Bh, Bh], dim=1)[:, :m]
+        assert not Bh_bad.is_contiguous()
+    vec = torch.randn(n if kernel == "bt_v" else m, generator=gen,
+                      dtype=torch.float64, device="cuda")
+    wrapper = getattr(df64_gemv, f"df64_{kernel}")
+    before = wrapper.launches
+    got = wrapper(Bh_bad, Bl, vec)
+    want = wrapper(Bh, Bl, vec)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert torch.equal(got, want)
 
 
 def test_df64_training_on_card_matches_cpu(small):
@@ -542,7 +624,6 @@ def test_constrained_greedy_loop_on_card_matches_cpu(small):
 
 def _cache_on(cache, dev):
     """The same cache fields, bit for bit, on ``dev``."""
-    import dataclasses
     return dataclasses.replace(cache, **{
         f.name: getattr(cache, f.name).to(dev)
         for f in dataclasses.fields(cache)

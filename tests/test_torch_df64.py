@@ -139,14 +139,21 @@ def test_wrapper_on_cpu_matches_pallas_kernel(padded, kernel):
 @pytest.mark.parametrize("bad", ["float64_b", "float32_vector", "strided",
                                  "shape"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(padded, bad):
+    """Wrong types and shapes raise.  A strided B is no longer among them:
+    the reference takes any B, and so does the wrapper (on the card the
+    kernel gets a contiguous copy), with the plain version's result."""
     _, Bh, Bl, v, _ = padded
     Bh, Bl, v = (torch.as_tensor(a) for a in (Bh, Bl, v))
+    if bad == "strided":
+        strided = Bl.T.contiguous().T
+        assert not strided.is_contiguous()
+        assert torch.equal(g.df64_bt_v(Bh, strided, v),
+                           g.df64_bt_v_ref(Bh, Bl, v))
+        return
     if bad == "float64_b":
         Bh = Bh.double()
     elif bad == "float32_vector":
         v = v.float()
-    elif bad == "strided":
-        Bl = Bl.T.contiguous().T
     else:
         v = v[:-1]
     with pytest.raises((TypeError, ValueError)):

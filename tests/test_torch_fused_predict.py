@@ -29,6 +29,7 @@ from mlff_tpu.data.synthetic import benchmark_perms, make_benchmark_dataset  # n
 from mlff_tpu.ops import descriptor as jd  # noqa: E402
 from mlff_tpu.ops import kernel as jk  # noqa: E402
 from mlff_tpu.ops.pallas_predict import desc_forces_pallas  # noqa: E402
+from mlff_tpu_torch.ops import cuda_build  # noqa: E402
 from mlff_tpu_torch.ops import fused_predict as fp  # noqa: E402
 
 SIG = 10.0
@@ -242,28 +243,130 @@ wide_cases = pytest.mark.parametrize(
 
 @wide_cases
 def test_wide_plan_fits_the_card(shape, D):
-    """Shared memory under a block's 232,448 bytes, every grid axis the card
-    takes, the slabs covering the training axis once in whole steps, and
-    the scratch bounded: the (B, M) weights by WIDE_WEIGHT_DOUBLES (or one
-    64-query tile where M alone passes it), the slabs' partials by two
-    blocks per SM of 64 x 64 forces."""
+    """Shared memory of the resident blocks within an SM's 233,472 bytes
+    (each block's reserved kilobyte included), every grid axis the card
+    takes, the slices and slabs covering the
+    descriptor and training axes once in whole stages, and one wave of
+    blocks wherever a pass splits an axis."""
     (B, M), p = shape, fp.plan(*shape, D, N_SM)
     geo = p.geometry
     assert geo is fp.WIDE
-    assert max(geo.smem_weights, geo.smem_forces) <= 48 * 1024 <= 232448
+    assert max(geo.smem_weights, geo.smem_forces) <= 232448
+    assert (geo.blocks_per_sm * (max(geo.smem_weights, geo.smem_forces)
+                                 + 1024) <= 233472)
+    assert geo.threads % 32 == 0 and geo.threads <= 1024
+    assert geo.queries == 32 * (geo.threads // 32) // 2
     assert p.b_chunk % geo.queries == 0 and p.b_chunk >= geo.queries
     Bc = min(B, p.b_chunk)
     assert p.n_qtiles == -(-Bc // geo.queries) <= 65535
-    assert 1 <= p.n_split <= 65535 and p.n_mtiles < 2**31
-    assert p.n_dtiles == -(-D // geo.tile) < 2**31
-    assert p.rows_per_split % geo.depth == 0
+    assert p.n_mtiles == -(-M // geo.tile)
+    assert p.n_qtiles * p.n_mtiles < 2**31 and 1 <= p.n_ksplit <= 65535
+    assert p.cols_per_slice % geo.depth == 0
+    assert (p.n_ksplit - 1) * p.cols_per_slice < D \
+        <= p.n_ksplit * p.cols_per_slice
+    assert p.n_dtiles == -(-D // geo.cols) < 2**31
+    assert 1 <= p.n_split <= 65535 and p.rows_per_split % geo.rows == 0
     assert (p.n_split - 1) * p.rows_per_split < M <= p.n_split * p.rows_per_split
-    weights = 2 * Bc * M
-    assert weights <= max(fp.WIDE_WEIGHT_DOUBLES, 2 * geo.queries * M)
-    partials = p.scratch_doubles(Bc, M, D) - weights - 2 * p.n_mtiles * Bc - Bc
-    assert partials <= 2 * N_SM * geo.queries * geo.tile
+    wave = N_SM * geo.blocks_per_sm
+    assert 0 <= p.n_whole <= p.n_qtiles * p.n_mtiles
+    assert p.n_whole + p.n_tail * p.n_ksplit < 2**31
+    if p.n_ksplit > 1:
+        assert p.n_whole % wave == 0 and p.n_tail * p.n_ksplit <= wave
+    else:
+        assert p.n_tail == 0
     if p.n_split > 1:
-        assert p.n_qtiles * p.n_dtiles * p.n_split <= 2 * N_SM + p.n_qtiles * p.n_dtiles
+        assert p.n_qtiles * p.n_dtiles * p.n_split <= wave
+
+
+# (B, M, D, tiles split): catcher, the nanotube and B = 1 fill less than a
+# wave and split every tile; the full row at D = 210 and 3828 runs three
+# whole waves and splits the 88 tiles of its fourth; aspirin's 192 tiles
+# fill 0.73 of a wave, and a split in two would overfill it
+SPLIT_CASES = {"catcher": (512, 119, 3828, 16),
+               "nanotube": (512, 14, 68265, 8),
+               "catcher_B1": (1, 119, 3828, 2),
+               "nanotube_B1": (1, 14, 68265, 1),
+               "aspirin_B1": (1, 1500, 210, 24),
+               "ragged_B7": (7, 298, 130, 5),
+               "full_3828": (512, 6996, 3828, 88),
+               "full_210": (512, 6996, 210, 88),
+               "aspirin": (512, 1500, 210, 0)}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_wide_plan_splits_d_where_pass_1_leaves_sms_idle(case):
+    """The tiles of pass 1's last wave, where it is not full (all of them
+    where they fill less than one wave of the 132 SMs' resident blocks),
+    are cut into as many slices of D as fill that wave: more than half of
+    it, or a stage per slice where D is that narrow, never more than all of
+    it.  The whole waves before it are not split."""
+    B, M, D, n_tail = SPLIT_CASES[case]
+    p = fp.plan(B, M, D, N_SM)
+    wave = N_SM * p.geometry.blocks_per_sm
+    tiles = p.n_qtiles * p.n_mtiles
+    assert p.n_tail == n_tail and p.n_whole == tiles - n_tail
+    if n_tail:
+        assert p.n_whole % wave == 0
+        assert p.n_ksplit > 1 and p.n_tail * p.n_ksplit <= wave
+        assert (wave // 2 < p.n_tail * p.n_ksplit
+                or p.cols_per_slice == p.geometry.depth)
+    else:
+        assert p.n_ksplit == 1 and p.cols_per_slice >= D
+
+
+SLICE_WIDTHS = [130, 131, 210, 1000, 3828, 3829, 68265]
+SLICE_SHAPES = [(1, 14), (7, 298), (512, 119), (512, 6996)]
+
+
+@pytest.mark.parametrize("D", SLICE_WIDTHS)
+@pytest.mark.parametrize("shape", SLICE_SHAPES,
+                         ids=[f"{b}x{m}" for b, m in SLICE_SHAPES])
+def test_wide_slices_cover_every_column_once(shape, D):
+    """Ragged D: the slices cover each descriptor column exactly once, none
+    is empty, each starts on a whole stage (16-byte copies stay aligned)."""
+    p = fp.plan(*shape, D, N_SM)
+    seen = np.zeros(D, dtype=np.int32)
+    for y in range(p.n_ksplit):
+        lo = y * p.cols_per_slice
+        assert lo < D and lo % p.geometry.depth == 0
+        seen[lo:min(D, lo + p.cols_per_slice)] += 1
+    assert np.all(seen == 1)
+
+
+@wide_cases
+def test_wide_scratch_stays_within_its_bound(shape, D):
+    """The (B, M) weights within WIDE_WEIGHT_DOUBLES (or one query tile
+    where M alone passes it); the slices' S and Gram partials within one
+    wave of pass-1 tiles with their row terms; the slabs' force partials
+    within one wave of pass-2 tiles."""
+    (B, M), p = shape, fp.plan(*shape, D, N_SM)
+    geo = p.geometry
+    wave = N_SM * geo.blocks_per_sm
+    Bc, ldm = min(B, p.b_chunk), M + M % 2
+    weights = 2 * Bc * ldm
+    assert weights <= max(fp.WIDE_WEIGHT_DOUBLES, 2 * geo.queries * ldm)
+    rows = 2 * (-(-p.n_mtiles * Bc // 2) * 2) + Bc + Bc % 2
+    slices = p.scratch_doubles(Bc, M, D) - weights - rows
+    if p.n_split > 1:
+        slices -= p.n_split * Bc * D
+        assert p.n_split * Bc * D <= wave * geo.queries * geo.cols
+    per_slice = 2 * geo.queries * geo.tile + geo.queries + 2 * geo.tile
+    assert slices == p.n_tail * p.n_ksplit * per_slice
+    assert slices <= wave * per_slice
+
+
+def test_wide_library_geometry_is_held_against_the_plan():
+    """``_library`` accepts a library that reports WIDE with a block of each
+    pass resident, and refuses one that reports other tiles or none."""
+    resident = (1, 1)
+    t = fp.WIDE.library_tuple()
+    good = t[:10] + resident + t[10:]
+    assert fp.wide_geometry_matches(good)
+    assert not fp.wide_geometry_matches(good[:10] + (0, 1) + good[12:])
+    for i in range(10):
+        bad = list(good)
+        bad[i] += 1
+        assert not fp.wide_geometry_matches(tuple(bad))
 
 
 def test_main_shape_plan_fills_the_card():
@@ -275,3 +378,27 @@ def test_main_shape_plan_fills_the_card():
     assert (p.n_qtiles, p.n_split, p.rows_per_split) == (8, 49, 144)
     one = fp.plan(1, 6996, 36, N_SM)
     assert one.n_qtiles == 1 and one.n_split >= N_SM
+
+
+PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_14wide11wide_forcesEPKdS2_S2_S2_S2_S2_PdS3_iiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_14wide11wide_forcesEPKdS2_S2_S2_S2_S2_PdS3_iiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 230 registers, 456 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116contract_partialILi5ELi2ELi4ELi3EEEvPKdS2_S2_Pdiiiiidd' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116contract_partialILi5ELi2ELi4ELi3EEEvPKdS2_S2_Pdiiiiidd
+    16 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 168 registers, 420 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_gives_each_kernels_registers_and_spills():
+    """What the build line reports per kernel, read from nvcc's -Xptxas -v
+    output under the kernel's own (unmangled) name."""
+    got = cuda_build.kernel_resources(PTXAS_REPORT)
+    assert got == {
+        "wide_forces": {"registers": 230, "spill_stores": 0,
+                        "spill_loads": 0},
+        "contract_partial": {"registers": 168, "spill_stores": 8,
+                             "spill_loads": 4}}
