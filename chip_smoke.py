@@ -214,6 +214,8 @@ import time
 
 import numpy as np
 
+from mlff_tpu_torch.utils import trace
+
 # NVIDIA H100 SXM data sheet, dense rates at the 700 W limit
 F64_PEAK = 67e12    # FP64 on the tensor cores, FLOP/s (the card's top f64 rate)
 F32_PEAK = 67e12    # FP32 on the CUDA cores, FLOP/s
@@ -660,13 +662,13 @@ def train_otf(torch, dev, task, ds, held, cached_row, mae_ref) -> int:
 
     tr = Trainer(device=dev)
     tr._pairwise_fits = lambda n_train, n_perms: False
-    fp.desc_forces_fused.launches = 0
+    trace.reset(fp.LAUNCHES)
     t0 = time.perf_counter()
     m = tr.train(task, n_columns=K_COLUMNS, str_preconditioner="lev_random")
     train_s = time.perf_counter() - t0
     info = tr.last_info
     _, F = Predictor(m, fast=True, device=dev).predict(ds["R"][held])
-    launches = fp.desc_forces_fused.launches
+    launches = trace.counter(fp.LAUNCHES)
     mae = float(np.abs(F - ds["F"][held]).mean())
     iters = int(m["solver_iters"])
 
@@ -728,7 +730,7 @@ def large_system(torch, dev, phase, molecule, n_train, k, limit) -> tuple:
     n_atoms = ds["R"].shape[1]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    fp.desc_forces_fused.launches = 0
+    trace.reset(fp.LAUNCHES)
     t0 = time.perf_counter()
     m = tr.train(task, n_columns=k, str_preconditioner="lev_random")
     train_s = time.perf_counter() - t0
@@ -736,7 +738,7 @@ def large_system(torch, dev, phase, molecule, n_train, k, limit) -> tuple:
     info = tr.last_info
     iters = int(m["solver_iters"])
     ok, errF, errE, max_F, F = fast_against_f64(m, ds["R"][held], dev)
-    launches = fp.desc_forces_fused.launches
+    launches = trace.counter(fp.LAUNCHES)
     row = dict(molecule=molecule, n=int(np.asarray(task["F_train"]).size),
                N_train=n_train, A=n_atoms, D=n_atoms * (n_atoms - 1) // 2,
                P=int(perms.shape[0]), k=len(m["inducing_pts_idxs"]),
@@ -834,7 +836,7 @@ def nanotube(torch, dev) -> int:
     torch.cuda.empty_cache()
 
     history = []       # (iterations, residual) after each chunk of PCG
-    fp.desc_forces_fused.launches = 0
+    trace.reset(fp.LAUNCHES)
     t0 = time.perf_counter()
     m = tr.train(dict(task, solver_maxiter=NANOTUBE_MAXITER),
                  n_columns=NANOTUBE_K, str_preconditioner="lev_random",
@@ -843,7 +845,7 @@ def nanotube(torch, dev) -> int:
     train_s = time.perf_counter() - t0
     info = tr.last_info
     ok, errF, errE, max_F, _ = fast_against_f64(m, ds["R"][held], dev)
-    launches = fp.desc_forces_fused.launches
+    launches = trace.counter(fp.LAUNCHES)
     resid, norm_y = float(m["solver_resid"]), float(m["norm_y_train"])
     row = dict(n=N * 370 * 3, N_train=N, D=spec.dim, square_fields=fields,
                k=NANOTUBE_K, square_columns_s=square_s,
@@ -975,14 +977,12 @@ def zoo_full(torch, tr, task, ds, held, mae_ref, counters) -> dict:
     from mlff_tpu_torch.models.predict import Predictor
 
     fp, dg = counters
-    fp.desc_forces_fused.launches = 0
-    dg.df64_bt_v.launches = 0
-    dg.df64_b_x.launches = 0
+    trace.reset(fp.LAUNCHES, *dg.LAUNCHES.values())
     n = int(np.asarray(task["F_train"]).size)
     for name, extra in ZOO_FULL:
         solver = "cg_cholesky" if name == "cg_cholesky" else "cg"
         kw = {} if solver == "cg_cholesky" else {"str_preconditioner": name}
-        before = (dg.df64_bt_v.launches, dg.df64_b_x.launches)
+        before = [trace.counter(c) for c in dg.LAUNCHES.values()]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = tr.train(dict(task, solver_name=solver, **extra),
@@ -1002,8 +1002,8 @@ def zoo_full(torch, tr, task, ds, held, mae_ref, counters) -> dict:
             remaining_diag_error=info.get("remaining_diag_error"),
             min_pivot=info.get("min_pivot"),
             force_mae_held_out=mae, force_mae_held_out_train=mae_ref,
-            df64_launches=[dg.df64_bt_v.launches - before[0],
-                           dg.df64_b_x.launches - before[1]])
+            df64_launches=[trace.counter(c) - b for c, b in
+                           zip(dg.LAUNCHES.values(), before)])
         emit("zoo_full", **row)
         if not m["is_conv"] or iters > ZOO_MAX_ITERS:
             fail(f"zoo_full {name}: converged={m['is_conv']} in {iters} PCG "
@@ -1015,9 +1015,9 @@ def zoo_full(torch, tr, task, ds, held, mae_ref, counters) -> dict:
         if extra.get("apply_impl") == "df64" and min(row["df64_launches"]) == 0:
             fail(f"zoo_full {name}: the df64 apply of a Cholesky factor did "
                  "not launch both df64 kernels")
-    launches = {"fused_predict": fp.desc_forces_fused.launches,
-                "df64_bt_v": dg.df64_bt_v.launches,
-                "df64_b_x": dg.df64_b_x.launches}
+    launches = {"fused_predict": trace.counter(fp.LAUNCHES),
+                "df64_bt_v": trace.counter(dg.LAUNCHES["bt_v"]),
+                "df64_b_x": trace.counter(dg.LAUNCHES["b_x"])}
     if min(launches.values()) == 0:
         fail(f"zoo_full did not launch every kernel: {launches}")
     return launches
@@ -1119,12 +1119,11 @@ def launch_counts(reset: bool = False) -> dict:
     from mlff_tpu_torch.ops import df64_gemv as dg
     from mlff_tpu_torch.ops import fused_predict as fp
 
-    wrappers = {"fused_predict": fp.desc_forces_fused,
-                "df64_bt_v": dg.df64_bt_v, "df64_b_x": dg.df64_b_x}
-    counts = {name: fn.launches for name, fn in wrappers.items()}
+    names = {"fused_predict": fp.LAUNCHES, "df64_bt_v": dg.LAUNCHES["bt_v"],
+             "df64_b_x": dg.LAUNCHES["b_x"]}
+    counts = {name: trace.counter(c) for name, c in names.items()}
     if reset:
-        for fn in wrappers.values():
-            fn.launches = 0
+        trace.reset(*names.values())
     return counts
 
 
@@ -1745,18 +1744,20 @@ def cli_ecstr(small: dict) -> None:
 
 class CgCollectives:
     """A train callback (once per CG chunk): the collectives launched per
-    iteration, with their milliseconds when
-    ``parallel.mesh.time_collectives`` is on, over the whole chunks after
-    the first (the last chunk also runs masked iterations past
-    convergence, which launch their collectives too)."""
+    iteration (the counter ``mesh.collectives``), with their milliseconds
+    when the training is recorded (``rec``: the ``mesh.collective`` spans of
+    ``utils.trace``, each synchronized), over the whole chunks after the
+    first (the last chunk also runs masked iterations past convergence,
+    which launch their collectives too)."""
 
-    def __init__(self, pmesh):
-        self.pmesh = pmesh
+    def __init__(self, rec=None):
+        self.rec = rec
         self.snaps = []
 
     def __call__(self, it, resid, eff):
-        self.snaps.append((it, self.pmesh.STATS["calls"],
-                           self.pmesh.STATS["seconds"]))
+        seconds = 0.0 if self.rec is None else sum(
+            s.seconds for s in self.rec.named("mesh.collective"))
+        self.snaps.append((it, trace.counter("mesh.collectives"), seconds))
 
     def per_iter(self) -> tuple[float, float]:
         snaps = self.snaps[:-1] if len(self.snaps) > 2 else self.snaps
@@ -1766,20 +1767,19 @@ class CgCollectives:
 
 
 def sharded_train(torch, dev, task, mesh, k, timed, extra=None):
-    """One Trainer.train(mesh=) of ``task`` with lev_random at k columns:
-    (model, row of its numbers)."""
+    """One Trainer.train(mesh=) of ``task`` with lev_random at k columns,
+    recorded by ``utils.trace`` when ``timed``: (model, row of its
+    numbers)."""
     from mlff_tpu_torch.models.gdml import Trainer
-    from mlff_tpu_torch.parallel import mesh as pmesh
 
-    pmesh.reset_stats()
-    pmesh.time_collectives(timed)
-    cb = CgCollectives(pmesh)
+    trace.reset("mesh.collectives")
     tr = Trainer(device=dev)
-    t0 = time.perf_counter()
-    m = tr.train(dict(task, **(extra or {})), n_columns=k,
-                 str_preconditioner="lev_random", callback=cb, mesh=mesh)
-    train_s = time.perf_counter() - t0
-    pmesh.time_collectives(False)
+    with (trace.recording() if timed else contextlib.nullcontext()) as rec:
+        cb = CgCollectives(rec)
+        t0 = time.perf_counter()
+        m = tr.train(dict(task, **(extra or {})), n_columns=k,
+                     str_preconditioner="lev_random", callback=cb, mesh=mesh)
+        train_s = time.perf_counter() - t0
     info = tr.last_info
     iters = int(m["solver_iters"])
     calls_it, ms_it = cb.per_iter()
@@ -1788,11 +1788,12 @@ def sharded_train(torch, dev, task, mesh, k, timed, extra=None):
                cg_s=info["total_time_cg"],
                ms_per_iter=info["total_time_cg"] * 1e3 / max(iters, 1),
                matvec_impl=info["matvec_impl"],
-               collectives=pmesh.STATS["calls"],
+               collectives=trace.counter("mesh.collectives"),
                collectives_per_iter=calls_it,
                gram_guard_fired=bool(info["nystrom"]["gram_guard_fired"]))
     if timed:
-        row.update(collective_s=pmesh.STATS["seconds"],
+        row.update(collective_s=sum(
+                       s.seconds for s in rec.named("mesh.collective")),
                    collective_ms_per_iter=ms_it)
     return m, row
 
@@ -1831,8 +1832,7 @@ def sharded_rank(rank, world, store, task, k, held_R, held_F, out_dir):
                            timeout=datetime.timedelta(seconds=120))
     mesh = pmesh.make_mesh()
     out = {}
-    fp.desc_forces_fused.launches = 0
-    dg.df64_bt_v.launches = dg.df64_b_x.launches = 0
+    trace.reset(fp.LAUNCHES, *dg.LAUNCHES.values())
     m, row = sharded_pair(torch, dev, task, mesh, k)
     E_m, F_m = Predictor(m, device=dev, mesh=mesh, fast=True).predict(held_R)
     E_0, F_0 = Predictor(m, device=dev).predict(held_R)
@@ -1842,8 +1842,8 @@ def sharded_rank(rank, world, store, task, k, held_R, held_F, out_dir):
     rows = slice(rank * half, (rank + 1) * half)
     E_w, F_w = Predictor(m, device=dev, batch_size=half).predict(held_R[rows])
     row.update(
-        fused_launches=fp.desc_forces_fused.launches,
-        df64_launches=dg.df64_bt_v.launches + dg.df64_b_x.launches,
+        fused_launches=trace.counter(fp.LAUNCHES),
+        df64_launches=sum(map(trace.counter, dg.LAUNCHES.values())),
         pred_rel_err_F=float(np.abs(F_m - F_0).max() / np.abs(F_0).max()),
         pred_rel_err_E=float(np.abs(E_m - E_0).max() / np.abs(E_0).max()),
         witness_batch=half,
@@ -1862,11 +1862,11 @@ def sharded_rank(rank, world, store, task, k, held_R, held_F, out_dir):
         force_mae_held_out=float(np.abs(F_m - held_F).mean()))
     out["b"] = row
     np.save(os.path.join(out_dir, f"b{rank}.npy"), m["alphas_F"])
-    dg.df64_bt_v.launches = dg.df64_b_x.launches = 0
+    trace.reset(*dg.LAUNCHES.values())
     m_c, row_c = sharded_train(torch, dev, task, mesh, k, False,
                                {"apply_impl": "df64"})
-    row_c["launches"] = {"df64_bt_v": dg.df64_bt_v.launches,
-                         "df64_b_x": dg.df64_b_x.launches}
+    row_c["launches"] = {"df64_bt_v": trace.counter(dg.LAUNCHES["bt_v"]),
+                         "df64_b_x": trace.counter(dg.LAUNCHES["b_x"])}
     _, F_c = Predictor(m_c, device=dev, mesh=mesh).predict(held_R)
     row_c["force_mae_held_out"] = float(np.abs(F_c - held_F).mean())
     out["c"] = row_c
@@ -1915,8 +1915,7 @@ def sharded(torch, dev, task, ds, held, refs: dict) -> int:
                                world_size=1, rank=0)
         try:
             mesh = pmesh.make_mesh()
-            fp.desc_forces_fused.launches = 0
-            dg.df64_bt_v.launches = dg.df64_b_x.launches = 0
+            trace.reset(fp.LAUNCHES, *dg.LAUNCHES.values())
             m, row = sharded_pair(torch, dev, task, mesh, K_COLUMNS)
             E_h, F_h = Predictor(m, device=dev, mesh=mesh).predict(
                 ds["R"][held])
@@ -1929,9 +1928,9 @@ def sharded(torch, dev, task, ds, held, refs: dict) -> int:
                        force_mae_held_out=float(np.abs(
                            F_h - ds["F"][held]).mean()),
                        force_mae_held_out_unsharded=refs["mae"],
-                       launches={"fused_predict": fp.desc_forces_fused.launches,
-                                 "df64": dg.df64_bt_v.launches
-                                 + dg.df64_b_x.launches})
+                       launches={"fused_predict": trace.counter(fp.LAUNCHES),
+                                 "df64": sum(map(trace.counter,
+                                                 dg.LAUNCHES.values()))})
             check("a", row, m["alphas_F"], refs["train"], SHARDED_SLACK_NCCL)
             if not row["pred_same_bits_unsharded"]:
                 fail("sharded (a): the one-rank mesh's predictions differ "
@@ -2588,7 +2587,7 @@ def main() -> None:
                  f"port (apply_impl={apply_impl})")
 
     # -- train: the main path ----------------------------------------------
-    fp.desc_forces_fused.launches = 0
+    trace.reset(fp.LAUNCHES)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = tr.train(task, n_columns=K_COLUMNS, str_preconditioner="lev_random")
@@ -2622,7 +2621,7 @@ def main() -> None:
     t1 = time.perf_counter()
     E_t, F_t = fast.predict(task["R_train"])
     t2 = time.perf_counter()
-    launches = fp.desc_forces_fused.launches
+    launches = trace.counter(fp.LAUNCHES)
     if launches == 0:
         fail("Predictor(fast=True) did not launch the fused kernel")
     exact = Predictor(model, fast=False, device=dev)
@@ -2663,14 +2662,13 @@ def main() -> None:
     for phase, extra, components in (
             ("train_df64", {}, 3),
             ("train_colblock_df64", {"nystrom_block_cols": COLBLOCK_COLS}, 2)):
-        dg.df64_bt_v.launches = 0
-        dg.df64_b_x.launches = 0
+        trace.reset(*dg.LAUNCHES.values())
         t0 = time.perf_counter()
         m_df = tr.train(dict(task, apply_impl="df64", **extra),
                         n_columns=K_COLUMNS, str_preconditioner="lev_random")
         train_s = time.perf_counter() - t0
-        launches_df = {"df64_bt_v": dg.df64_bt_v.launches,
-                       "df64_b_x": dg.df64_b_x.launches}
+        launches_df = {"df64_bt_v": trace.counter(dg.LAUNCHES["bt_v"]),
+                       "df64_b_x": trace.counter(dg.LAUNCHES["b_x"])}
         info = tr.last_info
         iters = int(m_df["solver_iters"])
         _, F_df = Predictor(m_df, device=dev).predict(ds["R"][held])

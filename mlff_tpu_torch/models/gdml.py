@@ -17,8 +17,6 @@ energies' mean.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -30,6 +28,7 @@ from ..solvers.analytic import solve_analytic
 from ..solvers.cg import pcg
 from ..solvers.iterative import solve_iterative
 from ..solvers.pivoted_cholesky import pivoted_cholesky
+from ..utils import trace
 from ..utils.log import get_logger
 from .predict import Predictor
 
@@ -141,7 +140,18 @@ class Trainer:
         state run row-sharded over it (``solve_iterative``), and every rank
         returns the same model.  The checkpoint callback runs on every rank
         with the whole iterate.  'analytic' and 'cg_cholesky' take no mesh
-        in the JAX package either: each rank runs them whole."""
+        in the JAX package either: each rank runs them whole.
+
+        The call is the request root ``train`` of ``utils.trace``."""
+        with trace.request("train"):
+            return self._train(task, break_percentage, n_columns,
+                               str_preconditioner, flag_eigvals, callback,
+                               save_progr_callback, allow_restarts,
+                               svd_cache, mesh)
+
+    def _train(self, task, break_percentage, n_columns, str_preconditioner,
+               flag_eigvals, callback, save_progr_callback, allow_restarts,
+               svd_cache, mesh):
         task = dict(task)
         solver = str(task["solver_name"])
         if solver not in ("analytic", "cg", "cg_cholesky"):
@@ -154,11 +164,10 @@ class Trainer:
                              "form; use 'cg' with str_preconditioner="
                              "'cholesky'")
 
-        t_setup = time.perf_counter()
-        spec, S, X, Jc, P_idx = self.build_kernel_inputs(task)
-        y, y_std, E_train_mean = self.labels(task)
-        log.info("train setup (descriptors+labels): %.2fs",
-                 time.perf_counter() - t_setup)
+        with trace.timed("train.descriptors") as t_setup:
+            spec, S, X, Jc, P_idx = self.build_kernel_inputs(task)
+            y, y_std, E_train_mean = self.labels(task)
+        log.info("train setup (descriptors+labels): %.2fs", t_setup.seconds)
 
         if n_columns is not None:
             break_percentage = n_columns / len(y)
@@ -171,24 +180,25 @@ class Trainer:
         K_dense = None
 
         if solver == "analytic":
-            cache = knl.build_cache(X, Jc, S, P_idx, float(task["sig"]),
-                                    float(task["lam"]), device=self.device)
-            t0 = time.perf_counter()
-            out = solve_analytic(
-                spec, cache, y, return_K=self.return_K, use_E_cstr=ecstr,
-                cprsn_keep_atoms_idxs=task.get("cprsn_keep_atoms_idxs"))
+            with trace.span("train.cache"):
+                cache = knl.build_cache(X, Jc, S, P_idx, float(task["sig"]),
+                                        float(task["lam"]), device=self.device)
+            with trace.timed("solve") as t_solve:
+                out = solve_analytic(
+                    spec, cache, y, return_K=self.return_K, use_E_cstr=ecstr,
+                    cprsn_keep_atoms_idxs=task.get("cprsn_keep_atoms_idxs"))
             alphas_psd, K_dense = out if self.return_K else (out, None)
-            info_solver = {"total_time_solve": time.perf_counter() - t0}
+            info_solver = {"total_time_solve": t_solve.seconds}
         else:
             task["lam"] = CG_LAM  # stronger ridge for the iterative paths
-            t_cache = time.perf_counter()
-            cache = knl.build_cache(
-                X, Jc, S, P_idx, float(task["sig"]), CG_LAM,
-                R=self._square_R(task, spec, P_idx),
-                pairwise=self._pairwise_fits(X.shape[0], P_idx.shape[0]),
-                device=self.device)
-            synchronize(self.device)
-            cache_build_s = time.perf_counter() - t_cache
+            with trace.timed("train.cache") as t_cache:
+                cache = knl.build_cache(
+                    X, Jc, S, P_idx, float(task["sig"]), CG_LAM,
+                    R=self._square_R(task, spec, P_idx),
+                    pairwise=self._pairwise_fits(X.shape[0], P_idx.shape[0]),
+                    device=self.device)
+                synchronize(self.device)
+            cache_build_s = t_cache.seconds
             log.info("kernel cache build: %.2fs", cache_build_s)
 
         if mesh is not None and solver != "cg":
@@ -221,52 +231,54 @@ class Trainer:
             # standalone matrix-free pivoted-Cholesky PCG
             # (reference iterative_cholesky.py:53-74)
             k = int((break_percentage or 0.1) * cache.n)
-            t0 = time.perf_counter()
-            fac, info_chol = pivoted_cholesky(spec, cache, max_rank=k)
-            P = pc.woodbury_from_factor(fac.L, CG_LAM)
-            del fac
-            result = pcg(
-                lambda v: knl.matvec_psd(cache, v),
-                torch.as_tensor(y, dtype=torch.float64, device=self.device),
-                precon=P, tol=float(task.get("solver_tol", 1e-4)),
-            )
-            if not result.converged:
-                raise RuntimeError("cg_cholesky did not converge")
+            with trace.timed("solve") as t_solve:
+                with trace.span("precon"):
+                    fac, info_chol = pivoted_cholesky(spec, cache, max_rank=k)
+                    P = pc.woodbury_from_factor(fac.L, CG_LAM)
+                del fac
+                result = pcg(
+                    lambda v: knl.matvec_psd(cache, v),
+                    torch.as_tensor(y, dtype=torch.float64,
+                                    device=self.device),
+                    precon=P, tol=float(task.get("solver_tol", 1e-4)),
+                )
+                if not result.converged:
+                    raise RuntimeError("cg_cholesky did not converge")
             alphas_psd = result.x
             num_iters, resid = result.num_iters, result.resid
             info_solver = {
                 **info_chol,
                 "is_conv": result.converged,
                 "total_time_cg": result.time_s,
-                "total_time_solve": time.perf_counter() - t0,
+                "total_time_solve": t_solve.seconds,
             }
             del P
         del cache
         self.last_info = info_solver
 
-        t_model = time.perf_counter()
-        alphas_F_ref, alphas_E_ref = self._split_alphas(task, alphas_psd,
-                                                        X.shape[0])
-        X_np, Jc_np = X.cpu().numpy(), Jc.cpu().numpy()
-        model = self.create_model(
-            task, solver, X_np, Jc_np, y_std, alphas_F_ref,
-            alphas_E=alphas_E_ref, solver_resid=resid, solver_iters=num_iters,
-            norm_y_train=float(np.linalg.norm(y)),
-            inducing_pts_idxs=inducing,
-        )
-        model.update(
-            {k: v for k, v in info_solver.items()
-             if isinstance(v, (int, float, bool, np.ndarray))})
+        with trace.timed("train.finalize") as t_model:
+            alphas_F_ref, alphas_E_ref = self._split_alphas(task, alphas_psd,
+                                                            X.shape[0])
+            X_np, Jc_np = X.cpu().numpy(), Jc.cpu().numpy()
+            model = self.create_model(
+                task, solver, X_np, Jc_np, y_std, alphas_F_ref,
+                alphas_E=alphas_E_ref, solver_resid=resid,
+                solver_iters=num_iters, norm_y_train=float(np.linalg.norm(y)),
+                inducing_pts_idxs=inducing,
+            )
+            model.update(
+                {k: v for k, v in info_solver.items()
+                 if isinstance(v, (int, float, bool, np.ndarray))})
 
-        if model["use_E"]:
-            c = (self._recov_int_const(model, task) if E_train_mean is None
-                 else E_train_mean)
-            if c is None:
-                model["use_E"] = False
-            else:
-                model["c"] = c
+            if model["use_E"]:
+                c = (self._recov_int_const(model, task) if E_train_mean is None
+                     else E_train_mean)
+                if c is None:
+                    model["use_E"] = False
+                else:
+                    model["c"] = c
 
-        model["finalize_s"] = time.perf_counter() - t_model
+        model["finalize_s"] = t_model.seconds
         log.info("model finalize: %.2fs", model["finalize_s"])
         if self.return_K and K_dense is not None:
             return model, K_dense, alphas_psd

@@ -35,6 +35,7 @@ from .. import resolve_device
 from ..ops import descriptor as dsc
 from ..ops import kernel as knl
 from ..ops.fused_predict import desc_forces_fused
+from ..utils import trace
 from ..utils.log import get_logger
 
 log = get_logger(__name__)
@@ -140,49 +141,65 @@ class Predictor:
         return cls(model, device=device)
 
     def _query_descriptors(self, R_batch: torch.Tensor):
-        X_query, Jc_query = dsc.descriptor(self.spec, R_batch,
-                                           lat_and_inv=self.lat_and_inv)
-        return (knl.SQRT5 / self.sig) * X_query, Jc_query
+        with trace.span("predict.descriptors"):
+            X_query, Jc_query = dsc.descriptor(self.spec, R_batch,
+                                               lat_and_inv=self.lat_and_inv)
+            return (knl.SQRT5 / self.sig) * X_query, Jc_query
+
+    def _backproject(self, Jc_query, F_desc, E):
+        """Descriptor-space forces back to Cartesian ones, both scaled."""
+        with trace.span("predict.backproject"):
+            F = dsc.vec_dot_d_desc(Jc_query, self.S, F_desc) * self.std
+            return E * self.std + self.c, F
 
     def _predict_batch_fast(self, R_batch: torch.Tensor):
         """Fused-kernel contraction (forces/energies, no E constraints)."""
         Xq_query, Jc_query = self._query_descriptors(R_batch)
-        F_desc, E = desc_forces_fused(Xq_query.contiguous(), self.Xqt,
-                                      self.wt, self.sig)
-        F = dsc.vec_dot_d_desc(Jc_query, self.S, F_desc) * self.std
-        return E * self.std + self.c, F
+        with trace.span("predict.contract"):
+            F_desc, E = desc_forces_fused(Xq_query.contiguous(), self.Xqt,
+                                          self.wt, self.sig)
+        return self._backproject(Jc_query, F_desc, E)
 
     def _predict_batch_impl(self, R_batch: torch.Tensor):
         """(B, A, 3) -> energies (B,), forces (B, A, 3), f64."""
         Xq_query, Jc_query = self._query_descriptors(R_batch)
-        q = knl.SQRT5 / self.sig
-        dist = knl.pairwise_dist_gram(Xq_query, self.Xqt)
-        A_exp = (5.0 / (3.0 * self.sig**2)) * torch.exp(-dist)
-        A_exp1 = A_exp * (1.0 + dist)
-        F_desc, E = knl._desc_forces_x(self.Xqt, self.sig, Xq_query, A_exp,
-                                       A_exp1, self.wt)
-        if self.vE_lin is not None:
-            # energy-coefficient contributions (reference predict.py:210-218)
-            H = A_exp1 * self.vE_lin[None, :]
-            F_desc = F_desc + (
-                Xq_query * torch.sum(H, dim=1, keepdim=True) - H @ self.Xqt
-            ) / q
-            K_ee = (1.0 + dist * (1.0 + dist / 3.0)) * torch.exp(-dist)
-            E = E + K_ee @ self.vE_lin
-        F = dsc.vec_dot_d_desc(Jc_query, self.S, F_desc) * self.std
-        return E * self.std + self.c, F
+        with trace.span("predict.contract"):
+            q = knl.SQRT5 / self.sig
+            dist = knl.pairwise_dist_gram(Xq_query, self.Xqt)
+            A_exp = (5.0 / (3.0 * self.sig**2)) * torch.exp(-dist)
+            A_exp1 = A_exp * (1.0 + dist)
+            F_desc, E = knl._desc_forces_x(self.Xqt, self.sig, Xq_query,
+                                           A_exp, A_exp1, self.wt)
+            if self.vE_lin is not None:
+                # energy-coefficient contributions (reference
+                # predict.py:210-218)
+                H = A_exp1 * self.vE_lin[None, :]
+                F_desc = F_desc + (
+                    Xq_query * torch.sum(H, dim=1, keepdim=True)
+                    - H @ self.Xqt) / q
+                K_ee = (1.0 + dist * (1.0 + dist / 3.0)) * torch.exp(-dist)
+                E = E + K_ee @ self.vE_lin
+        return self._backproject(Jc_query, F_desc, E)
 
     def predict(self, R):
-        """R (M, A, 3) or (M, 3A) -> (E (M,), F (M, A, 3)) as NumPy arrays."""
-        R = torch.as_tensor(np.asarray(R), dtype=torch.float64).reshape(
-            -1, self.spec.n_atoms, 3)
+        """R (M, A, 3) or (M, 3A) -> (E (M,), F (M, A, 3)) as NumPy arrays.
+        The call is the request root ``predict`` of ``utils.trace``."""
+        with trace.request("predict"):
+            return self._predict(R)
+
+    def _predict(self, R):
+        with trace.span("predict.input"):
+            R = torch.as_tensor(np.asarray(R), dtype=torch.float64).reshape(
+                -1, self.spec.n_atoms, 3)
         run = self._predict_batch_fast if self.fast else self._predict_batch_impl
         Es, Fs = [], []
         B = self.batch_size
         for start in range(0, R.shape[0], B):
             batch = R[start:start + B]
             if self.shard is None:
-                E, F = run(batch.to(self.device))
+                with trace.span("predict.h2d"):
+                    batch = batch.to(self.device)
+                E, F = run(batch)
             else:
                 # pad to an even split with the last geometry (to a
                 # multiple of the ranks, not to B: eager torch has no
@@ -195,8 +212,10 @@ class Predictor:
                     self.device))
                 E = self.shard.gather(E)[:n_real]
                 F = self.shard.gather(F)[:n_real]
-            Es.append(E.cpu().numpy())
-            Fs.append(F.cpu().numpy())
+            with trace.span("predict.d2h"):
+                Es.append(E.cpu().numpy())
+                Fs.append(F.cpu().numpy())
         if not Es:
             return np.zeros(0), np.zeros((0, self.spec.n_atoms, 3))
-        return np.concatenate(Es), np.concatenate(Fs)
+        with trace.span("predict.output"):
+            return np.concatenate(Es), np.concatenate(Fs)

@@ -24,8 +24,9 @@ launch and its result is the same bit for bit from run to run.
 ``df64_bt_v`` and ``df64_b_x`` launch the kernels for CUDA tensors (a failed
 build or launch raises) and run the plain PyTorch versions
 ``df64_bt_v_ref`` / ``df64_b_x_ref`` (``ops/df64.py``) for CPU tensors.
-Each wrapper counts its launches in ``.launches``, one per pass.  Nothing is
-padded: any (n, m) is taken as it is.
+Each wrapper counts its launches, one per pass, in a counter of
+``utils.trace`` (``LAUNCHES``).  Nothing is padded: any (n, m) is taken as
+it is.
 """
 
 from __future__ import annotations
@@ -37,8 +38,12 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils import trace
 from . import cuda_build
 from . import df64
+
+# the counters of ``utils.trace`` of each wrapper's launches
+LAUNCHES = {"bt_v": "launches.df64_bt_v", "b_x": "launches.df64_b_x"}
 
 # the launch geometry of csrc/df64_gemv.cu
 ROWS = 8                 # rows of B in a shared-memory stage
@@ -234,7 +239,7 @@ def df64_bt_v(Bh: torch.Tensor, Bl: torch.Tensor,
     if n == 0 or m == 0:
         return torch.zeros(m, dtype=torch.float64, device=dev)
     u = _launch_bt_v(_library(), _aligned(Bh), _aligned(Bl), _aligned(v))
-    df64_bt_v.launches += 1
+    trace.count(LAUNCHES["bt_v"])
     return u
 
 
@@ -267,7 +272,7 @@ def df64_b_x(Bh: torch.Tensor, Bl: torch.Tensor,
     if n == 0 or m == 0:
         return torch.zeros(n, dtype=torch.float64, device=dev)
     y = _launch_b_x(_library(), _aligned(Bh), _aligned(Bl), _aligned(x))
-    df64_b_x.launches += 1
+    trace.count(LAUNCHES["b_x"])
     return y
 
 
@@ -283,9 +288,6 @@ def _launch_b_x(lib: ctypes.CDLL, Bh, Bl, x) -> torch.Tensor:
     _raise_on(err, "df64_b_x")
     return y
 
-
-df64_bt_v.launches = 0
-df64_b_x.launches = 0
 
 # each wrapper's kernel as torch.profiler names it: the __global__
 # functions of csrc/df64_gemv.cu (their template argument follows)

@@ -31,8 +31,8 @@ on the wide route, the slices of the descriptor axis); the
 kernel source mirrors its constants and the wrapper holds the two against
 each other when the library is loaded.  ``desc_forces_fused`` launches the kernel for CUDA
 tensors (or raises) and runs the plain PyTorch version
-``desc_forces_fused_ref`` for CPU tensors.  ``desc_forces_fused.launches``
-counts the calls that launched the kernel.
+``desc_forces_fused_ref`` for CPU tensors.  The counter ``LAUNCHES`` of
+``utils.trace`` counts the calls that launched the kernel.
 """
 
 from __future__ import annotations
@@ -43,8 +43,12 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils import trace
 from . import cuda_build
 from .kernel import SQRT5, pairwise_dist_gram
+
+# the counter of ``utils.trace`` of the calls that launched the kernel
+LAUNCHES = "launches.fused_predict"
 
 # the launch geometry of csrc/fused_predict.cu
 TM = 16                  # training rows in a shared-memory stage
@@ -386,7 +390,7 @@ def desc_forces_fused(Xq_query: torch.Tensor, Xqt: torch.Tensor,
     else:
         with torch.cuda.device(dev):
             F, E = launch(_library(), Xq_query, Xqt, wt, sig, p)
-    desc_forces_fused.launches += 1
+    trace.count(LAUNCHES)
     return F, E
 
 
@@ -442,9 +446,6 @@ def _launch_wide(lib: ctypes.CDLL, Xq_query, Xqt, wt, sig: float,
             raise RuntimeError(f"fused_predict wide launch failed: CUDA "
                                f"error {err}")
     return f_out, e_out
-
-
-desc_forces_fused.launches = 0
 
 
 def bound_seconds(B: int, M: int, D: int, f64_peak: float,

@@ -28,33 +28,19 @@ because the caller chose gloo; NCCL takes CUDA tensors as they are.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import trace
 from ..utils.log import get_logger
 
 log = get_logger(__name__)
 
 ROWS = "rows"
 
-# collectives launched and, while ``time_collectives(True)``, their summed
-# wall time (each timed call synchronizes the device before and after)
-STATS = {"calls": 0, "seconds": 0.0}
-_TIMED = False
 _STAGING_LOGGED = False
-
-
-def time_collectives(on: bool) -> None:
-    """Time every collective (synchronized) into ``STATS["seconds"]``."""
-    global _TIMED
-    _TIMED = bool(on)
-
-
-def reset_stats() -> None:
-    STATS.update(calls=0, seconds=0.0)
 
 
 def make_mesh(world_size: int | None = None, device_type: str | None = None):
@@ -124,8 +110,10 @@ class RowShard:
 
     def _comm(self, fn, t: torch.Tensor):
         """``fn`` on the tensor as the backend takes it (a host copy for gloo
-        and a CUDA tensor), counted and, when on, timed; the result comes
-        back on t's device."""
+        and a CUDA tensor); the result comes back on t's device.  Counted
+        in the counter ``mesh.collectives``, and while ``utils.trace``
+        records, a span ``mesh.collective`` with the device synchronized
+        at both ends."""
         global _STAGING_LOGGED
         stage = self.backend == "gloo" and t.is_cuda
         if stage and not _STAGING_LOGGED:
@@ -133,15 +121,9 @@ class RowShard:
             log.info("gloo backend with CUDA tensors: every collective is "
                      "staged through host memory (the caller chose gloo)")
         src = t.detach().cpu() if stage else t.detach().contiguous()
-        if _TIMED and t.is_cuda:
-            torch.cuda.synchronize(t.device)
-        t0 = time.perf_counter()
-        out = fn(src)
-        if _TIMED and t.is_cuda:
-            torch.cuda.synchronize(t.device)
-        STATS["calls"] += 1
-        if _TIMED:
-            STATS["seconds"] += time.perf_counter() - t0
+        with trace.span("mesh.collective", sync=t.device):
+            out = fn(src)
+        trace.count("mesh.collectives")
         return out if not stage else out.to(t.device)
 
     def gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:

@@ -31,6 +31,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..utils import trace
+
 # Window length for the solver-effectiveness estimate
 # (reference iterative_solver.py:57-63).
 CG_STEPS_HIST_LEN = 100
@@ -186,6 +188,11 @@ def _pcg_drive(
     ``layout``: the row layout of a sharded operator; the checkpoint
     callback then runs on every rank with the gathered iterate (the caller
     writes on one rank).
+
+    Spans (``utils.trace``): ``cg``, from the loop's start to the iterate
+    in host memory (its seconds are ``time_s``; attribute ``iters``), and
+    per chunk ``cg.chunk``, the host queueing it (attributes ``steps``
+    queued and ``iters`` run), and ``cg.read``, its one transfer.
     """
     n = b.shape[0] if layout is None else layout.n
     if checkpoint_every_s is None:
@@ -209,76 +216,85 @@ def _pcg_drive(
     steps_hist: collections.deque = collections.deque(maxlen=CG_STEPS_HIST_LEN)
     prev_resid = float(state.resid)
     eff = 0
-    t_start = time.perf_counter()
-    t_last_ckpt = t_start
     stagnated = False
 
-    it_after = it0
-    last_replace = it0
-    while True:
-        it_before = it_after
-        remaining = maxiter - (it_before - it0)
-        if remaining <= 0:
-            break
-        state, resid_log = run(state, threshold_t, min(chunk, remaining))
-        # the one host transfer of the chunk: [log..., it, done, resid]
-        head = torch.stack([state.it.to(b.dtype), state.done.to(b.dtype),
-                            state.resid])
-        fetched = torch.cat([resid_log, head]).cpu().numpy()
-        it_after, done = int(fetched[-3]), bool(fetched[-2])
-        resid_now = float(fetched[-1])
+    with trace.timed("cg") as t_cg:
+        t_last_ckpt = t_cg.start
+        it_after = it0
+        last_replace = it0
+        while True:
+            it_before = it_after
+            remaining = maxiter - (it_before - it0)
+            if remaining <= 0:
+                break
+            steps = min(chunk, remaining)
+            with trace.span("cg.chunk") as queued:
+                state, resid_log = run(state, threshold_t, steps)
+            with trace.span("cg.read"):
+                # the one host transfer of the chunk: [log..., it, done, resid]
+                head = torch.stack([state.it.to(b.dtype),
+                                    state.done.to(b.dtype), state.resid])
+                fetched = torch.cat([resid_log, head]).cpu().numpy()
+            it_after, done = int(fetched[-3]), bool(fetched[-2])
+            queued.set("steps", steps)
+            queued.set("iters", it_after - it_before)
+            resid_now = float(fetched[-1])
 
-        if exact_matvec is not None and (
-            done or it_after - last_replace >= replace_every
-        ):
-            # van der Vorst-style residual replacement: swap in the true
-            # residual but keep the search direction and rho
-            r_true = b - exact_matvec(state.x)
-            state.r = r_true
-            state.resid = _norm(layout, r_true)
-            state.done = state.resid <= threshold_t
-            resid_now = float(state.resid)
-            done = resid_now <= threshold
-            last_replace = it_after
+            if exact_matvec is not None and (
+                done or it_after - last_replace >= replace_every
+            ):
+                # van der Vorst-style residual replacement: swap in the true
+                # residual but keep the search direction and rho
+                r_true = b - exact_matvec(state.x)
+                state.r = r_true
+                state.resid = _norm(layout, r_true)
+                state.done = state.resid <= threshold_t
+                resid_now = float(state.resid)
+                done = resid_now <= threshold
+                last_replace = it_after
 
-        log = fetched[: it_after - it_before]
-        resid_hist.append(log)
-        for rv in log:
-            steps_hist.append(rv - prev_resid)
-            prev_resid = float(rv)
+            log = fetched[: it_after - it_before]
+            resid_hist.append(log)
+            for rv in log:
+                steps_hist.append(rv - prev_resid)
+                prev_resid = float(rv)
 
-        # solver effectiveness: fraction of downhill steps in the window,
-        # rescaled to [-100, 100] (reference iterative_solver.py:886-897).
-        arr = np.array(steps_hist)
-        tot = np.abs(arr).sum()
-        ratio = (-arr.clip(max=0).sum() / tot) if tot > 0 else 1.0
-        eff = 0 if it_after == 0 else (int(100 * ratio) - 50) * 2
-        if len(steps_hist) == CG_STEPS_HIST_LEN and eff <= 0:
-            stagnated = True
+            # solver effectiveness: fraction of downhill steps in the window,
+            # rescaled to [-100, 100] (reference iterative_solver.py:886-897).
+            arr = np.array(steps_hist)
+            tot = np.abs(arr).sum()
+            ratio = (-arr.clip(max=0).sum() / tot) if tot > 0 else 1.0
+            eff = 0 if it_after == 0 else (int(100 * ratio) - 50) * 2
+            if len(steps_hist) == CG_STEPS_HIST_LEN and eff <= 0:
+                stagnated = True
 
-        if callback is not None:
-            callback(it_after, resid_now, eff)
+            if callback is not None:
+                callback(it_after, resid_now, eff)
 
-        now = time.perf_counter()
-        due = (checkpoint_callback is not None
-               and now - t_last_ckpt >= checkpoint_every_s)
-        if layout is not None and checkpoint_callback is not None:
-            due = layout.shard.any(due)      # the gather is collective
-        if due:
-            t_last_ckpt = now
-            checkpoint_callback(_whole(layout, state.x), it_after, resid_now)
+            now = time.perf_counter()
+            due = (checkpoint_callback is not None
+                   and now - t_last_ckpt >= checkpoint_every_s)
+            if layout is not None and checkpoint_callback is not None:
+                due = layout.shard.any(due)      # the gather is collective
+            if due:
+                t_last_ckpt = now
+                checkpoint_callback(_whole(layout, state.x), it_after,
+                                    resid_now)
 
-        if done or it_after - it0 >= maxiter or (stagnated and break_on_stagnation):
-            break
+            if done or it_after - it0 >= maxiter or (
+                    stagnated and break_on_stagnation):
+                break
 
-    resid = float(state.resid)
+        resid = float(state.resid)
+        x = _whole(layout, state.x)
+        t_cg.set("iters", it_after - it0)
     return CGResult(
-        x=_whole(layout, state.x),
+        x=x,
         converged=resid <= threshold,
         num_iters=it_after,
         resid=resid,
         resid_hist=np.concatenate(resid_hist) if resid_hist else np.zeros(0),
         eff=eff,
-        time_s=time.perf_counter() - t_start,
+        time_s=t_cg.seconds,
         stagnated=stagnated and resid > threshold,
     )

@@ -31,7 +31,6 @@ sgdml/solvers/iterative_inpoints.py:1011-1066):
 from __future__ import annotations
 
 import functools
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -40,6 +39,7 @@ import torch
 from .. import synchronize
 from ..ops import kernel as knl
 from ..ops.descriptor import DescriptorSpec
+from ..utils import trace
 from ..utils.log import get_logger
 from . import preconditioners as pc
 from .cg import pcg
@@ -98,12 +98,25 @@ def build_preconditioner(
     svd_cache: dict | None = None,
     n_inducing_pts: int = 25,
 ):
-    """Build (P_apply, inducing_pts_idxs, info) for one strategy string."""
+    """Build (P_apply, inducing_pts_idxs, info) for one strategy string,
+    in the span ``precon``."""
     task = task or {}
     apply_impl = _check_task(task)
+    with trace.timed("precon") as t:
+        P, inducing, info = _build(spec, cache, strategy, k, lam, rng, task,
+                                   apply_impl, svd_cache, n_inducing_pts)
+        # the build's tail may still be queued on the device: charge it
+        # here, not to the CG loop that would wait for it
+        synchronize(cache.device)
+    info["total_time_preconditioner"] = t.seconds
+    info["total_time_cholesky"] = info["total_time_preconditioner"]
+    return P, inducing, info
+
+
+def _build(spec, cache, strategy, k, lam, rng, task, apply_impl, svd_cache,
+           n_inducing_pts):
     use_E_cstr = bool(task.get("use_E_cstr", False))
     info: dict = {}
-    t0 = time.perf_counter()
 
     def _factor_precon(L):
         P = pc.woodbury_from_factor(L, lam,
@@ -148,29 +161,36 @@ def build_preconditioner(
 
     elif strategy in LEV_STRATEGIES:
         n_Fcols = cache.n_global  # inducing columns are always force columns
-        if strategy == "random_scores":
-            inducing = pc.select_random(n_Fcols, k, rng)
-        elif strategy in ("truncated_cholesky", "truncated_cholesky_custom"):
-            # hybrid: first k_trunc columns by pivot order of an incomplete
-            # Cholesky, rest uniformly from the remainder
-            # (reference iterative_solver.py:687-712)
-            k_trunc = min(int(task.get("truncated_cholesky", 1500)), k)
-            _, info_chol = pivoted_cholesky(spec, cache, max_rank=k_trunc)
-            order = info_chol["index_columns"]
-            chosen = order[:k_trunc]
-            rest = rng.choice(order[k_trunc:], size=k - k_trunc, replace=False) \
-                if k > k_trunc else np.array([], dtype=int)
-            inducing = np.sort(np.concatenate([chosen, rest]).astype(int))
-            info["truncated_cholesky_k"] = k_trunc
-        elif strategy in ("rank_k_lev_scores", "rank_k_lev_scores_custom"):
-            lev = pc.rank_k_leverage_scores(spec, cache, k)
-            p = lev / lev.sum()
-            inducing = np.sort(rng.choice(n_Fcols, size=k, replace=False, p=p))
-        else:  # lev_scores / inverse_lev / lev_random
-            # with energy constraints the scores come from the force block
-            lev, order = pc.leverage_scores(spec, cache, lam, n_inducing_pts,
-                                            rng)
-            inducing = pc.select_by_leverage(strategy, lev, order, k, rng)
+        with trace.span("precon.leverage"):
+            if strategy == "random_scores":
+                inducing = pc.select_random(n_Fcols, k, rng)
+            elif strategy in ("truncated_cholesky",
+                              "truncated_cholesky_custom"):
+                # hybrid: first k_trunc columns by pivot order of an
+                # incomplete Cholesky, rest uniformly from the remainder
+                # (reference iterative_solver.py:687-712)
+                k_trunc = min(int(task.get("truncated_cholesky", 1500)), k)
+                _, info_chol = pivoted_cholesky(spec, cache,
+                                                max_rank=k_trunc)
+                order = info_chol["index_columns"]
+                chosen = order[:k_trunc]
+                rest = rng.choice(order[k_trunc:], size=k - k_trunc,
+                                  replace=False) \
+                    if k > k_trunc else np.array([], dtype=int)
+                inducing = np.sort(np.concatenate([chosen, rest]).astype(int))
+                info["truncated_cholesky_k"] = k_trunc
+            elif strategy in ("rank_k_lev_scores",
+                              "rank_k_lev_scores_custom"):
+                lev = pc.rank_k_leverage_scores(spec, cache, k)
+                p = lev / lev.sum()
+                inducing = np.sort(rng.choice(n_Fcols, size=k, replace=False,
+                                              p=p))
+            else:  # lev_scores / inverse_lev / lev_random
+                # with energy constraints the scores come from the force
+                # block
+                lev, order = pc.leverage_scores(spec, cache, lam,
+                                                n_inducing_pts, rng)
+                inducing = pc.select_by_leverage(strategy, lev, order, k, rng)
 
         if inducing.shape != (k,):
             raise RuntimeError("incorrect number of inducing points")
@@ -187,11 +207,6 @@ def build_preconditioner(
     else:
         raise NotImplementedError(f"str_preconditioner = {strategy!r}")
 
-    # the build's tail may still be queued on the device: charge it here,
-    # not to the CG loop that would wait for it
-    synchronize(cache.device)
-    info["total_time_preconditioner"] = time.perf_counter() - t0
-    info["total_time_cholesky"] = info["total_time_preconditioner"]
     return P, inducing, info
 
 
@@ -295,7 +310,8 @@ def solve_iterative(
     ``SquareCache``, and PCG all-reduces its dot products.  The checkpoint
     callback receives the gathered iterate on every rank (the caller writes
     on one), and every rank returns the whole alphas.  N must divide evenly
-    over the mesh (ValueError)."""
+    over the mesh (ValueError).  The solve is the span ``solve`` of
+    ``utils.trace`` (its seconds are ``info["total_time_solve"]``)."""
     _check_task(task)
     use_E_cstr = bool(task.get("use_E_cstr", False))
     if use_E_cstr:
@@ -306,7 +322,18 @@ def solve_iterative(
             raise ValueError(
                 "flag_eigvals has no energy-constrained form: the spectrum "
                 "diagnostic assembles the force-only (n, n) kernel")
-    t_start = time.perf_counter()
+    with trace.timed("solve") as t:
+        res = _solve(spec, cache, task, y, break_percentage,
+                     str_preconditioner, flag_eigvals, callback,
+                     save_progr_callback, seed, allow_restarts, svd_cache,
+                     mesh, use_E_cstr)
+    res.info["total_time_solve"] = t.seconds
+    return res
+
+
+def _solve(spec, cache, task, y, break_percentage, str_preconditioner,
+           flag_eigvals, callback, save_progr_callback, seed, allow_restarts,
+           svd_cache, mesh, use_E_cstr) -> IterativeResult:
     rng = np.random.default_rng(seed)
     if mesh is not None and cache.shard is None:
         from ..parallel import mesh as pmesh
@@ -439,7 +466,6 @@ def solve_iterative(
     info.update({
         "is_conv": result.converged,
         "total_time_cg": result.time_s,
-        "total_time_solve": time.perf_counter() - t_start,
         "num_restarts": num_restarts,
     })
     return IterativeResult(

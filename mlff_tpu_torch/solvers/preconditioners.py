@@ -50,7 +50,6 @@ cache and keep their rows.
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -63,6 +62,7 @@ from ..ops import df64_gemv
 from ..ops import kernel as knl
 from ..ops import ozaki
 from ..ops.descriptor import DescriptorSpec
+from ..utils import trace
 from ..utils.hbm import post_d2h_ceiling_bytes
 from ..utils.log import get_logger
 
@@ -192,24 +192,9 @@ def _gram_probe(B: torch.Tensor, inner: np.ndarray, layout=None) -> float:
     return float(np.abs(inner[ii, jj] - exact.cpu().numpy()).max())
 
 
-class _StageTimer:
-    """Labelled wall-clock stage durations on ``dev`` (synchronized)."""
-
-    def __init__(self, dev: torch.device):
-        self.dev = dev
-        self.stages: dict[str, float] = {}
-        self._last = time.perf_counter()
-
-    def mark(self, label: str) -> None:
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        now = time.perf_counter()
-        self.stages[label] = now - self._last
-        self._last = now
-
-    def report(self, what: str) -> None:
-        log.info("%s: %s", what,
-                 "  ".join(f"{k} {v:.2f}s" for k, v in self.stages.items()))
+def _log_stages(what: str, seconds: dict) -> None:
+    log.info("%s: %s", what,
+             "  ".join(f"{k} {v:.2f}s" for k, v in seconds.items()))
 
 
 @dataclass
@@ -734,37 +719,38 @@ def _nystrom_factor_split(
     """
     dev = K_nm.device
     m = len(inducing_idxs)
-    t = _StageTimer(dev)
-    K_mm = _host_sym(_rows_at(layout, K_nm, inducing_idxs))
-    t.mark("gather_Kmm")
-    W1 = torch.as_tensor(_host_whiten_factor(K_mm, rank_tol, host_decomp),
-                         dtype=torch.float64, device=dev)
-    t.mark("host_W1")
-    # the Gram engine is the build mode at every n (_gram_impl_for)
-    impl = _build_mode()
-    B, inner_dev = _whiten_gram(K_nm, W1, impl)      # (n, m), B^T B
-    t.mark("whiten_gram")
-    inner = _host_sym(_sum_ranks(layout, inner_dev))
-    # GUARD: inner must match B's true Gram to ~lam ABSOLUTE, or the
-    # (w2 + lam)^-1/2 scaling silently stops preconditioning.  Probe the full
-    # diagonal and a few random cross entries with independent column dots;
-    # on failure recompute the whole Gram on host from the factor.
-    probe_err = _gram_probe(B, inner, layout)
-    fired = probe_err > max(0.1 * lam, 1e-12)
-    if fired:
-        log.warning(
-            "device Gram failed the spot check (max abs err %.2e vs lam = "
-            "%.0e): recomputing inner on host from the factor (%d x %d)",
-            probe_err, lam, B.shape[0], m)
-        B_host = (B if layout is None else layout.gather(B)).cpu().numpy()
-        inner = B_host.T @ B_host
-    t.mark("gram_probe")
-    W2 = torch.as_tensor(_host_inner_isqrt(inner, lam, host_decomp),
-                         dtype=torch.float64, device=dev)
-    t.mark("host_W2")
-    t.report("nystrom factor stages")
+    with trace.stages("precon.nystrom", sync=dev) as t:
+        K_mm = _host_sym(_rows_at(layout, K_nm, inducing_idxs))
+        t.mark("gather_Kmm")
+        W1 = torch.as_tensor(_host_whiten_factor(K_mm, rank_tol, host_decomp),
+                             dtype=torch.float64, device=dev)
+        t.mark("host_W1")
+        # the Gram engine is the build mode at every n (_gram_impl_for)
+        impl = _build_mode()
+        B, inner_dev = _whiten_gram(K_nm, W1, impl)      # (n, m), B^T B
+        t.mark("whiten_gram")
+        inner = _host_sym(_sum_ranks(layout, inner_dev))
+        # GUARD: inner must match B's true Gram to ~lam ABSOLUTE, or the
+        # (w2 + lam)^-1/2 scaling silently stops preconditioning.  Probe the
+        # full diagonal and a few random cross entries with independent
+        # column dots; on failure recompute the whole Gram on host from the
+        # factor.
+        probe_err = _gram_probe(B, inner, layout)
+        fired = probe_err > max(0.1 * lam, 1e-12)
+        if fired:
+            log.warning(
+                "device Gram failed the spot check (max abs err %.2e vs lam = "
+                "%.0e): recomputing inner on host from the factor (%d x %d)",
+                probe_err, lam, B.shape[0], m)
+            B_host = (B if layout is None else layout.gather(B)).cpu().numpy()
+            inner = B_host.T @ B_host
+        t.mark("gram_probe")
+        W2 = torch.as_tensor(_host_inner_isqrt(inner, lam, host_decomp),
+                             dtype=torch.float64, device=dev)
+        t.mark("host_W2")
+    _log_stages("nystrom factor stages", t.seconds)
     info = {"gram_guard_fired": bool(fired), "gram_probe_err": probe_err,
-            "stages": t.stages, "build_gemm": impl}
+            "stages": t.seconds, "build_gemm": impl}
     return B, W2, info
 
 
@@ -849,66 +835,69 @@ def _nystrom_factor_split_colblocked(
     m = len(inducing_idxs)
     dev = cache.device
     offs = list(range(0, m, block_cols))
-    t = _StageTimer(dev)
-    if use_E_cstr:
-        K_fe, _ = knl.assemble_ecstr_blocks(spec.dim_i, cache)
-        blocks = [knl.assemble_columns_ecstr(
-            spec, cache, inducing_idxs[off:off + block_cols], K_fe=K_fe)
-            for off in offs]
-        del K_fe
-    else:
-        blocks = [knl.assemble_columns(spec, cache,
-                                       inducing_idxs[off:off + block_cols])
-                  for off in offs]
-    t.mark("assemble")
-    K_mm = np.concatenate([_rows_at(layout, K_c, inducing_idxs).cpu().numpy()
-                           for K_c in blocks], axis=1)
-    t.mark("gather_Kmm")
-    W1 = torch.as_tensor(_host_whiten_factor(K_mm, rank_tol, "chol"),
-                         dtype=torch.float64, device=dev)
-    t.mark("host_W1")
-    mode = _build_mode()
-    gram_impl = _gram_impl_for(blocks[0].shape[0] if layout is None
-                               else layout.n)
-    for c in reversed(range(len(blocks))):
-        blocks[c] = _whiten_colblock(blocks[c], blocks[:c], W1, offs[c],
-                                     offs[:c], impl=mode)
-    t.mark("whiten")
-    inner = np.zeros((m, m))
-    for a in range(len(blocks)):
-        for b in range(a, len(blocks)):
-            G = _sum_ranks(layout, _gram_pair(blocks[a], blocks[b],
-                                              gram_impl)).cpu().numpy()
-            inner[offs[a]:offs[a] + G.shape[0],
-                  offs[b]:offs[b] + G.shape[1]] = G
-            if b != a:
-                inner[offs[b]:offs[b] + G.shape[1],
-                      offs[a]:offs[a] + G.shape[0]] = G.T
-    t.mark("gram")
-    # GUARD (same contract as _nystrom_factor_split's): every diagonal entry
-    # of every block against an independent column dot
-    probe_err = 0.0
-    for a, B_a in enumerate(blocks):
-        exact = _sum_ranks(layout, torch.sum(B_a * B_a, dim=0)).cpu().numpy()
-        diag = np.diagonal(inner)[offs[a]:offs[a] + B_a.shape[1]]
-        probe_err = max(probe_err, float(np.abs(diag - exact).max()))
-    fired = probe_err > max(0.1 * lam, 1e-12)
-    if fired:
-        log.warning(
-            "colblock device Gram failed the spot check (max abs err %.2e vs "
-            "lam = %.0e): recomputing inner on host from the blocks",
-            probe_err, lam)
-        B_host = np.concatenate(
-            [(B_c if layout is None else layout.gather(B_c)).cpu().numpy()
-             for B_c in blocks], axis=1)
-        inner = B_host.T @ B_host
-    t.mark("gram_probe")
-    W2 = torch.as_tensor(_host_inner_isqrt(inner, lam, "chol"),
-                         dtype=torch.float64, device=dev)
-    t.mark("host_W2")
-    t.report("nystrom colblock factor stages")
+    with trace.stages("precon.nystrom", sync=dev) as t:
+        if use_E_cstr:
+            K_fe, _ = knl.assemble_ecstr_blocks(spec.dim_i, cache)
+            blocks = [knl.assemble_columns_ecstr(
+                spec, cache, inducing_idxs[off:off + block_cols], K_fe=K_fe)
+                for off in offs]
+            del K_fe
+        else:
+            blocks = [knl.assemble_columns(spec, cache,
+                                           inducing_idxs[off:off + block_cols])
+                      for off in offs]
+        t.mark("assemble")
+        K_mm = np.concatenate(
+            [_rows_at(layout, K_c, inducing_idxs).cpu().numpy()
+             for K_c in blocks], axis=1)
+        t.mark("gather_Kmm")
+        W1 = torch.as_tensor(_host_whiten_factor(K_mm, rank_tol, "chol"),
+                             dtype=torch.float64, device=dev)
+        t.mark("host_W1")
+        mode = _build_mode()
+        gram_impl = _gram_impl_for(blocks[0].shape[0] if layout is None
+                                   else layout.n)
+        for c in reversed(range(len(blocks))):
+            blocks[c] = _whiten_colblock(blocks[c], blocks[:c], W1, offs[c],
+                                         offs[:c], impl=mode)
+        t.mark("whiten")
+        inner = np.zeros((m, m))
+        for a in range(len(blocks)):
+            for b in range(a, len(blocks)):
+                G = _sum_ranks(layout, _gram_pair(blocks[a], blocks[b],
+                                                  gram_impl)).cpu().numpy()
+                inner[offs[a]:offs[a] + G.shape[0],
+                      offs[b]:offs[b] + G.shape[1]] = G
+                if b != a:
+                    inner[offs[b]:offs[b] + G.shape[1],
+                          offs[a]:offs[a] + G.shape[0]] = G.T
+        t.mark("gram")
+        # GUARD (same contract as _nystrom_factor_split's): every diagonal
+        # entry of every block against an independent column dot
+        probe_err = 0.0
+        for a, B_a in enumerate(blocks):
+            exact = _sum_ranks(layout,
+                               torch.sum(B_a * B_a, dim=0)).cpu().numpy()
+            diag = np.diagonal(inner)[offs[a]:offs[a] + B_a.shape[1]]
+            probe_err = max(probe_err, float(np.abs(diag - exact).max()))
+        fired = probe_err > max(0.1 * lam, 1e-12)
+        if fired:
+            log.warning(
+                "colblock device Gram failed the spot check (max abs err "
+                "%.2e vs lam = %.0e): recomputing inner on host from the "
+                "blocks",
+                probe_err, lam)
+            B_host = np.concatenate(
+                [(B_c if layout is None else layout.gather(B_c)).cpu().numpy()
+                 for B_c in blocks], axis=1)
+            inner = B_host.T @ B_host
+        t.mark("gram_probe")
+        W2 = torch.as_tensor(_host_inner_isqrt(inner, lam, "chol"),
+                             dtype=torch.float64, device=dev)
+        t.mark("host_W2")
+    _log_stages("nystrom colblock factor stages", t.seconds)
     info = {"gram_guard_fired": bool(fired), "gram_probe_err": probe_err,
-            "stages": t.stages, "block_cols": int(block_cols),
+            "stages": t.seconds, "block_cols": int(block_cols),
             "n_blocks": len(blocks), "build_gemm": mode}
     return tuple(blocks), W2, info
 
@@ -1059,49 +1048,54 @@ def nystrom_preconditioner(
             "per-buffer post-d2h ceiling — using column blocks of %d",
             n, len(inducing_idxs), factor_bytes / 1e9,
             ceiling / 1e9, block_cols)
-    t0 = time.perf_counter()
-    if block_cols is not None:
+    with trace.stages("precon.nystrom") as t:
+        if block_cols is not None:
+            if method == "chol":
+                raise ValueError(
+                    "nystrom method 'chol' has no column-blocked form")
+            if apply_impl == "ozaki":
+                raise ValueError(
+                    f"apply_impl {apply_impl!r} unsupported with column "
+                    "blocks")
+            Bs, W2, info = _nystrom_factor_split_colblocked(
+                spec, cache, inducing_idxs, lam, rank_tol, block_cols,
+                use_E_cstr=use_E_cstr, layout=layout)
+            Bs, W2 = _pad_colblocks(Bs, W2)
+            t.mark("factor")
+            info = dict(info, factorization_s=t.seconds["factor"])
+            log.info("nystrom build (colblock x%d): %.2fs", len(Bs),
+                     info["factorization_s"])
+            if apply_impl == "df64":
+                return df64_from_colblocks(Bs, W2, lam, info, layout=layout)
+            return WoodburyColBlockPreconditioner(
+                Bs=Bs, W2=W2, lam=float(lam),
+                info=dict(info, apply_impl="xla"), layout=layout)
+        if use_E_cstr:
+            K_nm = knl.assemble_columns_ecstr(spec, cache, inducing_idxs)
+        else:
+            K_nm = knl.assemble_columns(spec, cache, inducing_idxs)  # (n, m)
+        if cache.device.type == "cuda":
+            torch.cuda.synchronize(cache.device)
+        t.mark("columns")
         if method == "chol":
-            raise ValueError("nystrom method 'chol' has no column-blocked form")
-        if apply_impl == "ozaki":
-            raise ValueError(
-                f"apply_impl {apply_impl!r} unsupported with column blocks")
-        Bs, W2, info = _nystrom_factor_split_colblocked(
-            spec, cache, inducing_idxs, lam, rank_tol, block_cols,
-            use_E_cstr=use_E_cstr, layout=layout)
-        Bs, W2 = _pad_colblocks(Bs, W2)
-        info = dict(info, factorization_s=time.perf_counter() - t0)
-        log.info("nystrom build (colblock x%d): %.2fs", len(Bs),
-                 info["factorization_s"])
-        if apply_impl == "df64":
-            return df64_from_colblocks(Bs, W2, lam, info, layout=layout)
-        return WoodburyColBlockPreconditioner(
-            Bs=Bs, W2=W2, lam=float(lam), info=dict(info, apply_impl="xla"),
+            T = _pad_factor_rows(_nystrom_factor_chol(K_nm, inducing_idxs,
+                                                      lam, layout))
+            t.mark("factor")
+            info = {"columns_s": t.seconds["columns"], "apply_impl": "xla",
+                    "factorization_s": t.seconds["factor"]}
+            log.info("nystrom build (chol): columns %.2fs, factorization "
+                     "%.2fs", info["columns_s"], info["factorization_s"])
+            return WoodburyPreconditioner(T=T, lam=float(lam), info=info,
+                                          layout=layout)
+        B, W2, info = _nystrom_factor_split(
+            K_nm, inducing_idxs, lam, rank_tol,
+            host_decomp="chol" if method == "chol_host" else "eigh",
             layout=layout)
-    if use_E_cstr:
-        K_nm = knl.assemble_columns_ecstr(spec, cache, inducing_idxs)
-    else:
-        K_nm = knl.assemble_columns(spec, cache, inducing_idxs)  # (n, m) PSD
-    if cache.device.type == "cuda":
-        torch.cuda.synchronize(cache.device)
-    t1 = time.perf_counter()
-    if method == "chol":
-        T = _pad_factor_rows(_nystrom_factor_chol(K_nm, inducing_idxs, lam,
-                                                  layout))
-        info = {"columns_s": t1 - t0, "apply_impl": "xla",
-                "factorization_s": time.perf_counter() - t1}
-        log.info("nystrom build (chol): columns %.2fs, factorization %.2fs",
-                 info["columns_s"], info["factorization_s"])
-        return WoodburyPreconditioner(T=T, lam=float(lam), info=info,
-                                      layout=layout)
-    B, W2, info = _nystrom_factor_split(
-        K_nm, inducing_idxs, lam, rank_tol,
-        host_decomp="chol" if method == "chol_host" else "eigh",
-        layout=layout)
-    del K_nm
-    B, W2 = _pad_split(B, W2)
-    info = dict(info, columns_s=t1 - t0,
-                factorization_s=time.perf_counter() - t1)
+        del K_nm
+        B, W2 = _pad_split(B, W2)
+        t.mark("factor")
+    info = dict(info, columns_s=t.seconds["columns"],
+                factorization_s=t.seconds["factor"])
     log.info("nystrom build (%s): columns %.2fs, factorization %.2fs",
              method, info["columns_s"], info["factorization_s"])
     P = WoodburySplitPreconditioner(B=B, W2=W2, lam=float(lam),
@@ -1145,15 +1139,16 @@ def leverage_scores(
             raise ValueError("idxs_ordered_by_lev_score must cover all n")
         lev_approx_idxs = np.sort(idxs_ordered_by_lev_score[-dim_m:])
 
-    t0 = time.perf_counter()
-    K_nm = knl.assemble_columns(spec, cache, lev_approx_idxs)  # (n, m)
-    t1 = time.perf_counter()
-    T = _nystrom_factor_eigh(K_nm, lev_approx_idxs, lam, rank_tol=1e-10,
-                             host_decomp="chol", layout=layout)
-    lev = torch.sum(T * T, dim=0)
-    lev = (lev if layout is None else layout.gather(lev)).cpu().numpy()
+    with trace.stages("precon.leverage") as t:
+        K_nm = knl.assemble_columns(spec, cache, lev_approx_idxs)  # (n, m)
+        t.mark("columns")
+        T = _nystrom_factor_eigh(K_nm, lev_approx_idxs, lam, rank_tol=1e-10,
+                                 host_decomp="chol", layout=layout)
+        lev = torch.sum(T * T, dim=0)
+        lev = (lev if layout is None else layout.gather(lev)).cpu().numpy()
+        t.mark("factor")
     log.info("lev scores (m=%d): columns %.2fs, factor+scores %.2fs",
-             len(lev_approx_idxs), t1 - t0, time.perf_counter() - t1)
+             len(lev_approx_idxs), t.seconds["columns"], t.seconds["factor"])
     return lev, np.argsort(lev)
 
 

@@ -197,11 +197,12 @@ def df64_launches_per_iter(matvec, precon, b: torch.Tensor, dev,
     the wrappers run their plain versions."""
     from ..ops import df64_gemv as dg
     from ..solvers.cg import PCGSolver
+    from ..utils import trace
 
-    dg.df64_bt_v.launches = dg.df64_b_x.launches = 0
+    trace.reset(*dg.LAUNCHES.values())
     bl.chunk_runner(PCGSolver(matvec, precon, chunk=chunk), b, chunk)()
-    return bl.on_card(dev, {"df64_bt_v": dg.df64_bt_v.launches / chunk,
-                            "df64_b_x": dg.df64_b_x.launches / chunk})
+    return bl.on_card(dev, {f"df64_{k}": trace.counter(c) / chunk
+                            for k, c in dg.LAUNCHES.items()})
 
 
 def run(args, dev) -> list:

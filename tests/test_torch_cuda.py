@@ -41,7 +41,9 @@ host memory and gives them back on the card.  The profiler reader
 (``utils/timing.py::device_profile``) reads a device spin as busy (share
 >= 0.9), a host sleep between two launches as idle (>= 0.5), names both
 df64 kernels once per apply, and raises when the profiler records no
-device activity.
+device activity.  The tracer (``utils/trace.py``): a recorded span holds
+its ``aten::mm`` and kernel on the profiler's clock within 50 us, and a
+recorded training leaves the profiler's device records as they are.
 """
 
 import dataclasses
@@ -65,8 +67,10 @@ from mlff_tpu_torch.ops import kernel as knl  # noqa: E402
 from mlff_tpu_torch.solvers import iterative as tit  # noqa: E402
 from mlff_tpu_torch.solvers import pivoted_cholesky as pch  # noqa: E402
 from mlff_tpu_torch.tools.time_fused_predict import operands  # noqa: E402
+from mlff_tpu_torch.utils import trace  # noqa: E402
 
 SIG = 10.0
+BT_V, B_X = df64_gemv.LAUNCHES["bt_v"], df64_gemv.LAUNCHES["b_x"]
 RTOL, MODEL_RTOL = 1e-10, 1e-8
 DF64_RTOL, SOLVE_TOL = 3e-12, 1e-4
 
@@ -97,11 +101,11 @@ def test_kernel_matches_plain_version(small, B):
     w = torch.as_tensor(np.random.default_rng(1).normal(size=(30, spec.dim)),
                         device="cuda")
     args = ((q * X[30:30 + B]).contiguous(), Xqt, knl.perm_expand_w(w, P_idx))
-    before = fp.desc_forces_fused.launches
+    before = trace.counter(fp.LAUNCHES)
     F_k, E_k = fp.desc_forces_fused(*args, SIG)
     F_r, E_r = fp.desc_forces_fused_ref(*args, SIG)
     torch.cuda.synchronize()
-    assert fp.desc_forces_fused.launches == before + 1
+    assert trace.counter(fp.LAUNCHES) == before + 1
     assert _rel_err(F_k, F_r) <= RTOL and _rel_err(E_k, E_r) <= RTOL
 
 
@@ -134,11 +138,11 @@ def by_width(small):
 def test_kernel_matches_plain_version_at_every_width(by_width, D, B):
     Xq, Xqt, wt = by_width[D]
     args = (Xq[:B].contiguous(), Xqt, wt)
-    before = fp.desc_forces_fused.launches
+    before = trace.counter(fp.LAUNCHES)
     F_k, E_k = fp.desc_forces_fused(*args, SIG)
     F_r, E_r = fp.desc_forces_fused_ref(*args, SIG)
     torch.cuda.synchronize()
-    assert fp.desc_forces_fused.launches == before + 1
+    assert trace.counter(fp.LAUNCHES) == before + 1
     assert F_k.shape == (B, D) and E_k.shape == (B,)
     assert torch.isfinite(F_k).all() and torch.isfinite(E_k).all()
     assert _rel_err(F_k, F_r) <= RTOL and _rel_err(E_k, E_r) <= RTOL
@@ -200,11 +204,11 @@ def test_wide_kernel_matches_plain_version(by_wide_width, D, B):
     Xq, Xqt, wt = by_wide_width[D]
     args = (Xq[:B].contiguous(), Xqt, wt)
     B = args[0].shape[0]
-    before = fp.desc_forces_fused.launches
+    before = trace.counter(fp.LAUNCHES)
     F_k, E_k = fp.desc_forces_fused(*args, SIG)
     F_r, E_r = fp.desc_forces_fused_ref(*args, SIG)
     torch.cuda.synchronize()
-    assert fp.desc_forces_fused.launches == before + 1
+    assert trace.counter(fp.LAUNCHES) == before + 1
     assert F_k.shape == (B, D) and E_k.shape == (B,)
     assert torch.isfinite(F_k).all() and torch.isfinite(E_k).all()
     assert _rel_err(F_k, F_r) <= RTOL and _rel_err(E_k, E_r) <= RTOL
@@ -351,9 +355,9 @@ def test_fast_predictor_matches_f64_predictor_at_a_wide_width(small):
     model = Trainer().train(task, n_columns=400,
                             str_preconditioner="lev_random")
     held = np.setdiff1d(np.arange(40), task["idxs_train"])
-    before = fp.desc_forces_fused.launches
+    before = trace.counter(fp.LAUNCHES)
     E_f, F_f = Predictor(model, fast=True).predict(ds["R"][held])
-    assert fp.desc_forces_fused.launches > before
+    assert trace.counter(fp.LAUNCHES) > before
     E_x, F_x = Predictor(model).predict(ds["R"][held])
     assert np.abs(F_f - F_x).max() <= MODEL_RTOL * np.abs(F_x).max()
     assert np.abs(E_f - E_x).max() <= \
@@ -367,9 +371,9 @@ def test_fast_predictor_matches_f64_predictor(small):
     model = Trainer().train(task, n_columns=200,
                             str_preconditioner="lev_random")
     held = np.setdiff1d(np.arange(70), task["idxs_train"])
-    before = fp.desc_forces_fused.launches
+    before = trace.counter(fp.LAUNCHES)
     E_f, F_f = Predictor(model, fast=True).predict(ds["R"][held])
-    assert fp.desc_forces_fused.launches > before
+    assert trace.counter(fp.LAUNCHES) > before
     E_x, F_x = Predictor(model).predict(ds["R"][held])
     assert np.abs(F_f - F_x).max() <= MODEL_RTOL * np.abs(F_x).max()
     assert np.abs(E_f - E_x).max() <= \
@@ -393,11 +397,11 @@ def test_df64_kernel_matches_plain_version_and_f64(small, kernel, shape):
         want = B @ vec
     wrapper = getattr(df64_gemv, f"df64_{kernel}")
     plain = getattr(df64_gemv, f"df64_{kernel}_ref")
-    before = wrapper.launches
+    before = trace.counter(df64_gemv.LAUNCHES[kernel])
     got = wrapper(Bh, Bl, vec)
     ref = plain(Bh, Bl, vec)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert trace.counter(df64_gemv.LAUNCHES[kernel]) == before + 1
     assert _rel_err(got, ref) <= DF64_RTOL
     assert _rel_err(got, want) <= DF64_RTOL
 
@@ -461,11 +465,11 @@ def test_df64_kernel_takes_a_misaligned_or_non_contiguous_b(small, kernel,
     vec = torch.randn(n if kernel == "bt_v" else m, generator=gen,
                       dtype=torch.float64, device="cuda")
     wrapper = getattr(df64_gemv, f"df64_{kernel}")
-    before = wrapper.launches
+    before = trace.counter(df64_gemv.LAUNCHES[kernel])
     got = wrapper(Bh_bad, Bl, vec)
     want = wrapper(Bh, Bl, vec)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 2
+    assert trace.counter(df64_gemv.LAUNCHES[kernel]) == before + 2
     assert torch.equal(got, want)
 
 
@@ -481,10 +485,10 @@ def test_df64_training_on_card_matches_cpu(small):
     task["apply_impl"] = "df64"
     held = np.setdiff1d(np.arange(40), task["idxs_train"])
     kw = dict(n_columns=200, str_preconditioner="lev_random")
-    before = (df64_gemv.df64_bt_v.launches, df64_gemv.df64_b_x.launches)
+    before = (trace.counter(BT_V), trace.counter(B_X))
     m_gpu = Trainer().train(task, **kw)
-    assert df64_gemv.df64_bt_v.launches > before[0]
-    assert df64_gemv.df64_b_x.launches > before[1]
+    assert trace.counter(BT_V) > before[0]
+    assert trace.counter(B_X) > before[1]
     m_cpu = Trainer(device="cpu").train(task, **kw)
     assert m_gpu["is_conv"] and m_cpu["is_conv"]
     assert abs(int(m_gpu["solver_iters"]) - int(m_cpu["solver_iters"])) <= 2
@@ -545,11 +549,11 @@ def test_df64_apply_of_a_cholesky_factor_launches_both_kernels(small):
     Pdf, _, _ = tit.build_preconditioner(
         spec, c_gpu, "cholesky", 40, 1e-10, np.random.default_rng(7),
         task={"apply_impl": "df64"})
-    before = (df64_gemv.df64_bt_v.launches, df64_gemv.df64_b_x.launches)
+    before = (trace.counter(BT_V), trace.counter(B_X))
     got = Pdf(v)
     torch.cuda.synchronize()
-    assert df64_gemv.df64_bt_v.launches == before[0] + 1
-    assert df64_gemv.df64_b_x.launches == before[1] + 1
+    assert trace.counter(BT_V) == before[0] + 1
+    assert trace.counter(B_X) == before[1] + 1
     assert _rel_err(got, P64(v)) <= DF64_RTOL
 
 
@@ -746,9 +750,9 @@ def test_one_rank_nccl_sharded_matvec_matches_unsharded(nccl_mesh):
     assert sh.shard.backend == "nccl" and sh.shard.world == 1
     v = torch.as_tensor(np.random.default_rng(9).normal(size=c_gpu.n),
                         device="cuda")
-    calls = pmesh.STATS["calls"]
+    calls = trace.counter("mesh.collectives")
     got = knl.matvec_psd(sh, pmesh.shard_vector(v, nccl_mesh))
-    assert got.is_cuda and pmesh.STATS["calls"] == calls + 1
+    assert got.is_cuda and trace.counter("mesh.collectives") == calls + 1
     assert _rel_err(got, knl.matvec_psd(c_gpu, v)) <= 1e-12
 
 
@@ -773,12 +777,12 @@ def test_one_rank_nccl_sharded_apply_matches_unsharded(nccl_mesh,
         apply_impl=apply_impl)
     assert P_sh.layout is not None
     assert not P_sh.info["gram_guard_fired"]
-    before = (df64_gemv.df64_bt_v.launches, df64_gemv.df64_b_x.launches)
+    before = (trace.counter(BT_V), trace.counter(B_X))
     got = P_sh(v)
     torch.cuda.synchronize()
     if apply_impl == "df64":
-        assert df64_gemv.df64_bt_v.launches == before[0] + 1
-        assert df64_gemv.df64_b_x.launches == before[1] + 1
+        assert trace.counter(BT_V) == before[0] + 1
+        assert trace.counter(B_X) == before[1] + 1
     assert _rel_err(got, P(v)) <= 1e-10
 
 
@@ -867,3 +871,101 @@ def test_device_profile_raises_without_device_activity(card, monkeypatch):
     x = torch.zeros(16, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA activity"):
         timing.device_profile(torch, lambda: x.add_(1.0), warmup=1, reps=2)
+
+
+# -- the tracer (utils/trace.py) on the profiler's clock ---------------------
+
+SHARED_CLOCK_S = 50e-6
+
+
+def _kineto_events(prof):
+    from torch.autograd import DeviceType
+
+    events = list(prof.profiler.kineto_results.events())
+    on_card = [e for e in events if e.device_type() == DeviceType.CUDA]
+    return [e for e in events if e not in on_card], on_card
+
+
+def test_recorded_span_holds_its_profiler_records(card):
+    """A recorded span around a matmul that ends in a synchronize holds, on
+    the profiler's Unix-epoch clock, the host record of its ``aten::mm``
+    and the end of its device kernel, within 50 us."""
+    from torch.profiler import ProfilerActivity, profile
+
+    a = torch.randn(2048, 2048, dtype=torch.float64, device="cuda")
+    a @ a
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with trace.recording() as rec:
+            with trace.span("mm"):
+                a @ a
+                torch.cuda.synchronize()
+    (s,) = rec.named("mm")
+    lo = rec.epoch(s.start) - SHARED_CLOCK_S
+    hi = rec.epoch(s.end) + SHARED_CLOCK_S
+    host, on_card = _kineto_events(prof)
+    (mm,) = [e for e in host if e.name() == "aten::mm"]
+    kernels = [e for e in on_card
+               if not e.name().startswith(("Memcpy", "Memset"))]
+    assert kernels
+    assert lo <= mm.start_ns() * 1e-9 and mm.end_ns() * 1e-9 <= hi
+    for e in kernels:
+        assert lo <= e.end_ns() * 1e-9 <= hi, (
+            e.name(), e.end_ns() * 1e-9 - rec.epoch(s.end))
+
+
+def test_recording_leaves_the_profiled_device_records_as_they_are(card):
+    """``devtrace.profile`` of a recorded training holds the same device
+    record names, each as often, as one of the same training not
+    recorded: no span reaches the device's timeline."""
+    import collections
+
+    from benchmark import devtrace
+
+    ds, perms = make_benchmark_dataset("ethanol", n_samples=70, seed=11,
+                                       n_train=30)
+    task = create_task(ds, 30, ds, n_valid=5, sig=SIG, solver="cg",
+                       perms=perms)
+    tr = Trainer()
+    kw = dict(n_columns=200, str_preconditioner="lev_random")
+    tr.train(task, **kw)
+
+    def recorded():
+        with trace.recording():
+            tr.train(task, **kw)
+
+    def names(t):
+        return collections.Counter(n for n, _, _ in t.device)
+
+    plain = devtrace.profile(torch, lambda: tr.train(task, **kw))
+    assert names(devtrace.profile(torch, recorded)) == names(plain)
+
+
+def test_profiled_device_records_carry_their_launch(card):
+    """``benchmark/spans.py``'s profile links every device record of a
+    recorded training to the host call that launched it, and each launch
+    lies inside the training's request span on the shared clock."""
+    from benchmark import spans
+
+    ds, perms = make_benchmark_dataset("ethanol", n_samples=70, seed=11,
+                                       n_train=30)
+    task = create_task(ds, 30, ds, n_valid=5, sig=SIG, solver="cg",
+                       perms=perms)
+    tr = Trainer()
+    kw = dict(n_columns=200, str_preconditioner="lev_random")
+    tr.train(task, **kw)
+    held = {}
+
+    def recorded():
+        with trace.recording() as rec:
+            tr.train(task, **kw)
+        held["rec"] = rec
+
+    profiled, launched = spans.profile(torch, recorded)
+    rec = held["rec"]
+    (root,) = rec.roots()
+    lo = rec.epoch(root.start) - SHARED_CLOCK_S
+    hi = rec.epoch(root.end) + SHARED_CLOCK_S
+    assert len(launched) == len(profiled.device) > 0
+    assert all(t is not None and lo <= t <= hi for t in launched)

@@ -35,6 +35,7 @@ from mlff_tpu_torch.models.predict import Predictor  # noqa: E402
 from mlff_tpu_torch.ops import descriptor as td  # noqa: E402
 from mlff_tpu_torch.ops import df64_gemv as g  # noqa: E402
 from mlff_tpu_torch.solvers import preconditioners as tpc  # noqa: E402
+from mlff_tpu_torch.utils import trace  # noqa: E402
 
 LAM, SIG = 1e-10, 10.0
 APPLY_RTOL, COLBLOCK_RTOL = 1e-11, 5e-11
@@ -67,9 +68,9 @@ def test_df64_apply_matches_jax(factor, components):
     z_jax = np.asarray(jpc.df64_woodbury_apply(Pj, jnp.asarray(v)))
     Pt = convert.df64_preconditioner_from_numpy(
         _np(Pj.Bh), _np(Pj.Bl), _np(Pj.W2), LAM, Bm=_np(Pj.Bm), device="cpu")
-    before = (g.df64_bt_v.launches, g.df64_b_x.launches)
+    before = [trace.counter(c) for c in g.LAUNCHES.values()]
     z = Pt(torch.as_tensor(v)).numpy()
-    assert (g.df64_bt_v.launches, g.df64_b_x.launches) == before
+    assert [trace.counter(c) for c in g.LAUNCHES.values()] == before
     assert z.shape == v.shape
     assert _rel(z, z_jax) < APPLY_RTOL
     assert _rel(z, z_split) < APPLY_RTOL

@@ -46,6 +46,7 @@ from mlff_tpu_torch.ops import kernel as tk  # noqa: E402
 from mlff_tpu_torch.solvers import analytic as tan  # noqa: E402
 from mlff_tpu_torch.solvers import iterative as tit  # noqa: E402
 from mlff_tpu_torch.solvers import preconditioners as tpc  # noqa: E402
+from mlff_tpu_torch.utils import trace  # noqa: E402
 from .torch_threads import one_torch_thread  # noqa: E402,F401
 
 SIG, LAM = 10.0, 1e-10
@@ -414,12 +415,12 @@ def test_fast_predictor_takes_the_f64_contraction_for_constrained_models(
     ds, _, held, m_j, _ = analytic_pair
     m = convert.model_from_numpy(m_j)
     R = ds["R"][held]
-    launches = fp.desc_forces_fused.launches
+    launches = trace.counter(fp.LAUNCHES)
     fast = Predictor(m, fast=True, device="cpu")
     assert not fast.fast
     E_f, F_f = fast.predict(R)
     E_s, F_s = Predictor(m, fast=False, device="cpu").predict(R)
-    assert fp.desc_forces_fused.launches == launches
+    assert trace.counter(fp.LAUNCHES) == launches
     np.testing.assert_array_equal(E_f, E_s)
     np.testing.assert_array_equal(F_f, F_s)
     E_j, F_j = JaxPredictor(m_j).predict(R)

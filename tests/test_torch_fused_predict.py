@@ -31,6 +31,7 @@ from mlff_tpu.ops import kernel as jk  # noqa: E402
 from mlff_tpu.ops.pallas_predict import desc_forces_pallas  # noqa: E402
 from mlff_tpu_torch.ops import cuda_build  # noqa: E402
 from mlff_tpu_torch.ops import fused_predict as fp  # noqa: E402
+from mlff_tpu_torch.utils import trace  # noqa: E402
 
 SIG = 10.0
 ATOL_REL, RTOL_F32 = 2e-5, 2e-4   # tests/test_pallas_predict.py
@@ -121,10 +122,10 @@ def test_plain_version_matches_pallas_kernel_at_uracil_width(operands_uracil):
 
 def test_wrapper_on_cpu_runs_plain_version_without_launching(operands):
     args = _torch(operands[0][:7], operands[1], operands[2])
-    before = fp.desc_forces_fused.launches
+    before = trace.counter(fp.LAUNCHES)
     F_w, E_w = fp.desc_forces_fused(*args, SIG)
     F_r, E_r = fp.desc_forces_fused_ref(*args, SIG)
-    assert fp.desc_forces_fused.launches == before
+    assert trace.counter(fp.LAUNCHES) == before
     assert torch.equal(F_w, F_r) and torch.equal(E_w, E_r)
 
 
