@@ -402,13 +402,11 @@ PROFILE_RUNS = (
 )
 PROFILE_SUM_RTOL, PROFILE_BUSY_SLACK = 0.25, 1.05
 # the main task's runs, whose loop-time split is held to PROFILE_SUM_RTOL:
-# there the loop is host-bound in every case, so the cases' host times add
-# up (1.07 and 1.00 of the whole on an NVIDIA H100 80GB HBM3 at 700 W,
-# PERF.md section 6).  At the root's default shape the apply is
-# device-bound and the matvec host-bound: in the full loop the matvec's
-# launches hide under the apply's device time, so the parts overlap (1.18
-# and 1.26 of the whole on that card).  There, as on every run, the
-# device's busy time is split and held
+# there the replayed loop is device-bound in every case, so the cases'
+# times add up (0.998 and 1.008 of the whole on an NVIDIA H100 80GB HBM3
+# at 700 W, PERF.md section 6).  A case whose launches outlast its device
+# work would overlap the others' parts, so the loop's split is held there
+# alone; on every run the device's busy time is split and held
 MAIN_CHUNK_RUNS = ("chunk_parts_main_xla", "chunk_parts_main_df64")
 
 

@@ -18,11 +18,19 @@ vectors are this rank's rows: the dot products and norms are all-reduced,
 so every rank takes the same steps and stops at the same iteration, and the
 iterate handed to the checkpoint callback and returned is gathered whole on
 every rank.
+
+On one card (``b`` on CUDA, no ``layout``) a chunk's iterations are not
+queued op by op from Python: the solve's first iteration runs eagerly as
+the warm-up, one iteration is then captured as a CUDA graph over fixed
+state buffers, and every later iteration of the solve replays it (the host
+queues one graph launch instead of ~57 kernels).  The graph is released when
+the solve returns.  Everywhere else the same iteration runs eagerly.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import os
 import time
 from dataclasses import dataclass
@@ -36,6 +44,13 @@ from ..utils import trace
 # Window length for the solver-effectiveness estimate
 # (reference iterative_solver.py:57-63).
 CG_STEPS_HIST_LEN = 100
+
+# counters (utils.trace): iterations run by replaying the captured
+# iteration, and captures (one per solve on one card)
+GRAPH_ITERS = "cg.graph_iters"
+GRAPH_CAPTURES = "cg.graph_captures"
+
+_FIELDS = ("x", "r", "p", "rho", "resid", "it", "done")
 
 
 @dataclass
@@ -74,6 +89,13 @@ def _norm(layout, r: torch.Tensor) -> torch.Tensor:
             else torch.sqrt(layout.shard.dot(r, r)))
 
 
+def _graphed(b: torch.Tensor, layout) -> bool:
+    """Whether the iteration is captured and replayed: on one card, the
+    vectors on CUDA and no row layout (a sharded operator's collectives
+    stage through the host under gloo)."""
+    return b.is_cuda and layout is None
+
+
 def _whole(layout, x: torch.Tensor) -> np.ndarray:
     """The iterate as a host array, gathered on a row-sharded operator."""
     return (x if layout is None else layout.gather(x)).cpu().numpy()
@@ -91,41 +113,142 @@ class PCGSolver:
         self.chunk = chunk
         self.exact = exact_matvec
         self.layout = layout
+        self.eager_steps = 0      # the last chunk's first steps, run eagerly
+        self._release()
 
     def _run(self, state: CGState, threshold: torch.Tensor, max_steps: int):
         """Up to ``max_steps`` iterations queued on the device; returns the
-        new state and the (chunk,) residual log (NaN where no iteration
-        ran).  Iterations after convergence change nothing."""
-        state.done = state.done | (state.resid <= threshold)
-        resid_log = torch.full((self.chunk,), float("nan"),
-                               dtype=state.r.dtype, device=state.r.device)
-        x, r, p, rho, resid, it, done = (state.x, state.r, state.p, state.rho,
-                                         state.resid, state.it, state.done)
-        for i in range(max_steps):
-            active = ~done
-            z = self.precon(r)
-            rho_new = _dot(self.layout, r, z)
-            # first iteration overall: p = z; afterwards p = z + beta p
-            beta = torch.where(it == 0, torch.zeros_like(rho_new),
-                               rho_new / rho)
-            p_new = z + beta * p
-            q = self.matvec(p_new)
-            alpha = rho_new / _dot(self.layout, p_new, q)
-            x = torch.where(active, x + alpha * p_new, x)
-            r_new = r - alpha * q
-            r = torch.where(active, r_new, r)
-            p = torch.where(active, p_new, p)
-            rho = torch.where(active, rho_new, rho)
-            resid = torch.where(active, _norm(self.layout, r_new), resid)
-            resid_log[i] = torch.where(active, resid, resid_log[i])
-            it = it + active.to(it.dtype)
-            done = done | (resid <= threshold)
-        return CGState(x, r, p, rho, resid, it, done), resid_log
+        state and the (chunk,) residual log (NaN where no iteration ran),
+        both over the solver's own buffers, which the next call
+        overwrites.  Iterations after convergence change nothing."""
+        loop = self._loop
+        if loop is None:
+            loop = self._loop = _Loop(state, threshold, self.chunk)
+        loop.load(state, threshold)
+        if _graphed(state.r, self.layout):
+            self._replay(loop, max_steps)
+        else:
+            for _ in range(max_steps):
+                self._step(loop)
+            self.eager_steps = max_steps
+        return loop.state(), loop.log
+
+    def _step(self, s: _Loop) -> None:
+        """One PCG iteration on the buffers ``s``, in place.  After
+        convergence it changes nothing but the log entry (NaN) and
+        ``slot``."""
+        active = ~s.done
+        z = self.precon(s.r)
+        rho_new = _dot(self.layout, s.r, z)
+        # first iteration overall: p = z; afterwards p = z + beta p
+        beta = torch.where(s.it == 0, s.zero, rho_new / s.rho)
+        p_new = z + beta * s.p
+        q = self.matvec(p_new)
+        alpha = rho_new / _dot(self.layout, p_new, q)
+        torch.where(active, s.x + alpha * p_new, s.x, out=s.x)
+        r_new = s.r - alpha * q
+        torch.where(active, r_new, s.r, out=s.r)
+        torch.where(active, p_new, s.p, out=s.p)
+        torch.where(active, rho_new, s.rho, out=s.rho)
+        torch.where(active, _norm(self.layout, r_new), s.resid, out=s.resid)
+        s.log.index_copy_(0, s.slot,
+                          torch.where(active, s.resid, s.nan).view(1))
+        s.slot.add_(1)
+        s.it.add_(active)
+        s.done |= s.resid <= s.threshold
+
+    def _replay(self, loop: _Loop, steps: int) -> None:
+        """``steps`` iterations on one card: the solve's first iteration
+        eagerly (the warm-up, on the capture stream, so that its first-use
+        allocations are made outside the capture), then one iteration
+        captured as a CUDA graph, replayed for this and every later
+        iteration.  The capture records without running: the counters it
+        moved are taken back out, and added again per replay."""
+        self.eager_steps = 0
+        if steps and self._graph is None:
+            stream, anchor = _capture_target(loop.r.device)
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                self._step(loop)
+                with trace.span("cg.capture"), trace.counted() as counts:
+                    graph = torch.cuda.CUDAGraph()
+                    graph.capture_begin(pool=anchor.pool())
+                    try:
+                        self._step(loop)
+                    finally:
+                        graph.capture_end()
+            torch.cuda.current_stream().wait_stream(stream)
+            trace.add(counts, -1)
+            trace.count(GRAPH_CAPTURES)
+            self._graph, self._graph_counts = graph, counts
+            self.eager_steps = 1
+        for _ in range(steps - self.eager_steps):
+            self._graph.replay()
+        if steps:
+            trace.add(self._graph_counts, steps - self.eager_steps)
+
+    def _release(self) -> None:
+        """Drop the buffers and the graph, whose kernels read the
+        operator's and the preconditioner's tensors."""
+        self._loop = self._graph = self._graph_counts = None
 
     def solve(self, b: torch.Tensor, **kwargs) -> CGResult:
-        return _pcg_drive(self._run, self.matvec, b, chunk=self.chunk,
-                          exact_matvec=self.exact, layout=self.layout,
-                          **kwargs)
+        try:
+            return _pcg_drive(self, b, **kwargs)
+        finally:
+            self._release()
+
+
+class _Loop:
+    """The tensors one iteration reads and writes in place: the ``CGState``
+    fields, the threshold, the chunk's residual log and ``slot``, the log
+    entry the next iteration writes (a device index, so that one captured
+    iteration serves every step of a chunk); and the constants 0 and NaN,
+    which a Python number would make anew, one fill kernel each, per
+    iteration."""
+
+    def __init__(self, state: CGState, threshold: torch.Tensor, chunk: int):
+        for f in _FIELDS:
+            setattr(self, f, torch.empty_like(getattr(state, f)))
+        self.threshold = torch.empty_like(threshold)
+        self.log = torch.empty(chunk, dtype=state.r.dtype,
+                               device=state.r.device)
+        self.slot = torch.empty(1, dtype=torch.int64, device=state.r.device)
+        self.zero = torch.zeros_like(state.rho)
+        self.nan = torch.full_like(state.resid, float("nan"))
+
+    def load(self, state: CGState, threshold: torch.Tensor) -> None:
+        """Start a chunk from ``state``: copy in each field that is not
+        already this buffer, flag convergence, empty the log."""
+        for f in _FIELDS:
+            src = getattr(state, f)
+            if src is not getattr(self, f):
+                getattr(self, f).copy_(src)
+        self.threshold.copy_(threshold)
+        self.done |= self.resid <= self.threshold
+        self.log.fill_(float("nan"))
+        self.slot.zero_()
+
+    def state(self) -> CGState:
+        return CGState(*(getattr(self, f) for f in _FIELDS))
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_target(device: torch.device):
+    """(stream, graph) of the captures on ``device``, one each per
+    process.  The warm-up leaves its first-use allocations (cuBLAS
+    workspaces, kernel scratch) on the stream.  The graph, of one kernel
+    and never replayed, holds the memory pool that every capture shares
+    (``CUDAGraph.pool``): a released graph's blocks serve the next
+    capture, where a pool of its own per solve would stay reserved until
+    the allocator runs short."""
+    with torch.cuda.device(device):
+        stream, anchor = torch.cuda.Stream(), torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            anchor.capture_begin()
+            torch.zeros(1, device=device)
+            anchor.capture_end()
+    return stream, anchor
 
 
 def pcg(
@@ -157,21 +280,17 @@ def pcg(
 
 
 def _pcg_drive(
-    run,
-    matvec,
+    solver: PCGSolver,
     b: torch.Tensor,
     x0: torch.Tensor | None = None,
     tol: float = 1e-4,
     maxiter: int | None = None,
-    chunk: int = 25,
     callback: Callable | None = None,
     checkpoint_callback: Callable | None = None,
     checkpoint_every_s: float | None = None,
     it0: int = 0,
     break_on_stagnation: bool = False,
-    exact_matvec: Callable | None = None,
     replace_every: int = 50,
-    layout=None,
 ) -> CGResult:
     """Host driver for the chunked device loop.
 
@@ -180,20 +299,24 @@ def _pcg_drive(
     ``checkpoint_every_s`` seconds (the reference's unconverged-model
     snapshots, iterative_solver.py:919-954).
 
-    ``exact_matvec`` enables residual replacement for inexact operators:
-    every ~``replace_every`` iterations, and before accepting convergence,
-    the recursive residual is replaced by the true residual b - A_exact x,
-    keeping the search direction and rho.
+    The solver's ``exact`` operator enables residual replacement for
+    inexact operators: every ~``replace_every`` iterations, and before
+    accepting convergence, the recursive residual is replaced by the true
+    residual b - A_exact x, keeping the search direction and rho.
 
-    ``layout``: the row layout of a sharded operator; the checkpoint
-    callback then runs on every rank with the gathered iterate (the caller
-    writes on one rank).
+    On a sharded operator (the solver's ``layout``) the checkpoint callback
+    runs on every rank with the gathered iterate (the caller writes on one
+    rank).
 
     Spans (``utils.trace``): ``cg``, from the loop's start to the iterate
     in host memory (its seconds are ``time_s``; attribute ``iters``), and
     per chunk ``cg.chunk``, the host queueing it (attributes ``steps``
-    queued and ``iters`` run), and ``cg.read``, its one transfer.
+    queued and ``iters`` run), and ``cg.read``, its one transfer; in the
+    first chunk of a solve on one card, ``cg.capture``.  Counter
+    ``cg.graph_iters``: the iterations that ran by replay.
     """
+    matvec, chunk, layout = solver.matvec, solver.chunk, solver.layout
+    exact_matvec = solver.exact
     n = b.shape[0] if layout is None else layout.n
     if checkpoint_every_s is None:
         checkpoint_every_s = float(os.environ.get("MLFF_CKPT_EVERY_S", "120"))
@@ -229,7 +352,7 @@ def _pcg_drive(
                 break
             steps = min(chunk, remaining)
             with trace.span("cg.chunk") as queued:
-                state, resid_log = run(state, threshold_t, steps)
+                state, resid_log = solver._run(state, threshold_t, steps)
             with trace.span("cg.read"):
                 # the one host transfer of the chunk: [log..., it, done, resid]
                 head = torch.stack([state.it.to(b.dtype),
@@ -238,6 +361,9 @@ def _pcg_drive(
             it_after, done = int(fetched[-3]), bool(fetched[-2])
             queued.set("steps", steps)
             queued.set("iters", it_after - it_before)
+            # the chunk's iterations are its first steps, the eager ones first
+            trace.count(GRAPH_ITERS,
+                        max(0, it_after - it_before - solver.eager_steps))
             resid_now = float(fetched[-1])
 
             if exact_matvec is not None and (

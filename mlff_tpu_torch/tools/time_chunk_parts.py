@@ -164,7 +164,7 @@ def loop_ms(runners: dict, dev, iters: int = ITERS, chunk: int = CHUNK
     """{case: (ms per iteration, spread)} of the cases' chunk runners timed
     in turns (``time_in_turns``: ``iters // chunk`` chunks between two CUDA
     events per turn, TURN_ROUNDS rounds forward and back, the median), so
-    that the host's drift, which sets this host-bound loop's pace, falls
+    that the host's drift, which sets the pace of a host-bound case, falls
     on all cases alike; None on the CPU."""
     from ..utils.timing import time_in_turns
 

@@ -29,7 +29,9 @@ device work.
 
 Recording follows the thread that opened it; spans that other threads open
 meanwhile are not kept.  Counters (``count``) add to ``COUNTERS`` at all
-times, and a recording snapshots them when it opens and when it closes.
+times, and a recording snapshots them when it opens and when it closes;
+``counted`` and ``add`` carry a CUDA graph's counts from its capture to its
+replays.
 """
 
 from __future__ import annotations
@@ -58,6 +60,29 @@ def reset(*names: str) -> None:
     """Set the counters ``names`` back to 0."""
     for name in names:
         COUNTERS.pop(name, None)
+
+
+@contextlib.contextmanager
+def counted():
+    """The counters' changes across the block: ``with counted() as got``
+    fills ``got`` ({name: change}) when the block ends.  A CUDA graph's
+    capture counts the kernels it records but runs none, and each replay
+    runs them all: its caller takes ``got`` back out once
+    (``add(got, -1)``) and adds it once per replay."""
+    start = dict(COUNTERS)
+    got: dict[str, int] = {}
+    try:
+        yield got
+    finally:
+        for name, n in COUNTERS.items():
+            if n != start.get(name, 0):
+                got[name] = n - start.get(name, 0)
+
+
+def add(counts: dict, times: int = 1) -> None:
+    """Add ``times`` times each of ``counts`` ({name: n}) to its counter."""
+    for name, n in counts.items():
+        count(name, n * times)
 
 
 def _sync(device) -> None:

@@ -969,3 +969,172 @@ def test_profiled_device_records_carry_their_launch(card):
     hi = rec.epoch(root.end) + SHARED_CLOCK_S
     assert len(launched) == len(profiled.device) > 0
     assert all(t is not None and lo <= t <= hi for t in launched)
+
+
+# -- the PCG iteration replayed as a CUDA graph (solvers/cg.py) --------------
+
+GRAPH_SLACK_BYTES = 16 * 2**20
+
+
+def _eager(monkeypatch):
+    """Every later solve in the test runs the eager step on the card."""
+    from mlff_tpu_torch.solvers import cg
+
+    monkeypatch.setattr(cg, "_graphed", lambda b, layout: False)
+
+
+def _graph_counts():
+    from mlff_tpu_torch.solvers import cg
+
+    return trace.counter(cg.GRAPH_CAPTURES), trace.counter(cg.GRAPH_ITERS)
+
+
+def _calibrated_task(n_train=30, **options):
+    ds, perms = make_benchmark_dataset("ethanol", n_samples=n_train + 40,
+                                       seed=11, n_train=n_train)
+    task = create_task(ds, n_train, ds, n_valid=5, sig=SIG, solver="cg",
+                       perms=perms)
+    task.update(options)
+    return task
+
+
+def test_graphed_chunks_match_the_eager_run(card, monkeypatch):
+    """On the calibrated test task with its Nystrom preconditioner, three
+    chunks of 25 from one state: the first (warm-up, capture, 24 replays)
+    and the next two replayed give the eager step's iterate, residual and
+    log bit for bit, and the counters count 74 replayed iterations."""
+    from mlff_tpu_torch.solvers import cg
+
+    task = _calibrated_task()
+    tr = Trainer()
+    spec, S, X, Jc, P_idx = tr.build_kernel_inputs(task)
+    cache = knl.build_cache(X, Jc, S, P_idx, SIG, task["lam"],
+                            device="cuda")
+    P, _, _ = tit.build_preconditioner(spec, cache, "lev_random", 200,
+                                       task["lam"],
+                                       np.random.default_rng(7))
+    b = torch.as_tensor(np.asarray(task["F_train"]).ravel(), device="cuda")
+    b = b / torch.linalg.norm(b)
+
+    def three_chunks():
+        solver = cg.PCGSolver(lambda v: knl.matvec_psd(cache, v), P,
+                              chunk=25)
+        state = cg.CGState(
+            x=torch.zeros_like(b), r=b.clone(), p=torch.zeros_like(b),
+            rho=torch.ones((), dtype=b.dtype, device="cuda"),
+            resid=torch.linalg.norm(b),
+            it=torch.zeros((), dtype=torch.int64, device="cuda"),
+            done=torch.zeros((), dtype=torch.bool, device="cuda"))
+        logs = []
+        threshold = torch.zeros((), dtype=b.dtype, device="cuda")
+        for _ in range(3):
+            state, log = solver._run(state, threshold, 25)
+            logs.append(log.clone())
+        return state, torch.cat(logs)
+
+    before = _graph_counts()
+    got, got_log = three_chunks()
+    torch.cuda.synchronize()
+    assert _graph_counts()[0] == before[0] + 1
+    _eager(monkeypatch)
+    want, want_log = three_chunks()
+    assert int(got.it) == int(want.it) == 75
+    assert torch.equal(got.x, want.x) and torch.equal(got.r, want.r)
+    assert torch.equal(got_log, want_log)
+
+
+def test_graphed_training_matches_eager(card, monkeypatch):
+    """A whole ``Trainer.train``: one capture, every iteration but the
+    warm-up replayed, and the eager training's iterations and residual."""
+    task = _calibrated_task()
+    kw = dict(n_columns=200, str_preconditioner="lev_random")
+    tr = Trainer()
+    tr.train(task, **kw)
+    before = _graph_counts()
+    graphed = tr.train(task, **kw)
+    captures, replayed = (a - b for a, b in zip(_graph_counts(), before))
+    iters = int(graphed["solver_iters"])
+    assert (captures, replayed) == (1, iters - 1) and iters > 25
+    _eager(monkeypatch)
+    eager = tr.train(task, **kw)
+    assert _graph_counts()[0] == before[0] + 1
+    assert int(eager["solver_iters"]) == iters
+    assert float(eager["solver_resid"]) == float(graphed["solver_resid"])
+
+
+def test_graphed_df64_training_counts_every_replayed_kernel(card,
+                                                            monkeypatch):
+    """``apply_impl="df64"``: the df64 kernels counted in a graphed training
+    equal those of the eager one (the capture's own counts are taken back
+    out, and each replay's added)."""
+    task = _calibrated_task(apply_impl="df64")
+    kw = dict(n_columns=200, str_preconditioner="lev_random")
+    tr = Trainer()
+    tr.train(task, **kw)
+
+    def launches():
+        before = (trace.counter(BT_V), trace.counter(B_X))
+        model = tr.train(task, **kw)
+        return (trace.counter(BT_V) - before[0],
+                trace.counter(B_X) - before[1], int(model["solver_iters"]))
+
+    graphed = launches()
+    _eager(monkeypatch)
+    eager = launches()
+    assert graphed == eager and eager[0] > eager[2]
+
+
+def test_graphed_solve_memory_holds_over_trainings(card, monkeypatch):
+    """The peak allocated memory of a graphed training is the eager one's
+    within 16 MB, and ten graphed trainings back to back leave allocated
+    and reserved memory where the first left them (16 MB of room)."""
+    task = _calibrated_task(n_train=400)
+    kw = dict(n_columns=800, str_preconditioner="lev_random")
+    tr = Trainer()
+    tr.train(task, **kw)
+
+    def trained():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr.train(task, **kw)
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated(),
+                torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+
+    runs = [trained() for _ in range(10)]
+    with monkeypatch.context() as m:
+        _eager(m)
+        eager_peak = trained()[0]
+    assert abs(runs[0][0] - eager_peak) <= GRAPH_SLACK_BYTES
+    for peak, allocated, reserved in runs[1:]:
+        assert peak <= runs[0][0] + GRAPH_SLACK_BYTES
+        assert allocated <= runs[0][1] + GRAPH_SLACK_BYTES
+        assert reserved <= runs[0][2] + GRAPH_SLACK_BYTES
+
+
+def test_one_rank_nccl_sharded_solve_is_not_graphed(nccl_mesh):
+    """A row-sharded solve on the card (one NCCL rank) keeps the eager
+    step, captures nothing, and takes the unsharded graphed solve's
+    iterations."""
+    from mlff_tpu_torch.parallel import mesh as pmesh
+    from mlff_tpu_torch.solvers import cg
+    from mlff_tpu_torch.solvers import preconditioners as tpc
+
+    spec, c_gpu, _ = _random_caches()
+    sh = pmesh.shard_cache(c_gpu, nccl_mesh)
+    idxs = np.sort(np.random.default_rng(3).choice(c_gpu.n, 40,
+                                                   replace=False))
+    v = torch.as_tensor(np.random.default_rng(4).normal(size=c_gpu.n),
+                        device="cuda")
+    P_sh = tpc.nystrom_preconditioner(spec, sh, idxs, 1e-10)
+    layout = knl.vector_layout(sh)
+    before = _graph_counts()
+    got = cg.pcg(lambda u: knl.matvec_psd(sh, u),
+                 pmesh.shard_vector(v, nccl_mesh), precon=P_sh,
+                 layout=layout, tol=1e-4)
+    assert _graph_counts() == before
+    P = tpc.nystrom_preconditioner(spec, c_gpu, idxs, 1e-10)
+    want = cg.pcg(lambda u: knl.matvec_psd(c_gpu, u), v, precon=P, tol=1e-4)
+    assert _graph_counts()[0] == before[0] + 1
+    assert got.converged and want.converged
+    assert abs(got.num_iters - want.num_iters) <= 2
