@@ -1,4 +1,5 @@
-"""The benchmark of ``mlff_tpu_torch`` on one NVIDIA H100.
+"""The benchmark of ``mlff_tpu_torch`` on one NVIDIA H100, or four for a
+cell that asks for them (``ranks.py``).
 
 One command runs one cell once (see ``README.md``):
 

@@ -19,7 +19,9 @@ window then runs requests back to back and ends with the first one that
 completes after ``seconds``; the device's peak memory is read; with trace
 the session's ``traced`` work runs once under ``torch.profiler``; the
 metrics are read; the program's state is freed; and the plain reference
-judges what the window produced.
+judges what the window produced.  A cell on more than one card runs one
+process per card (``ranks.py``); this process, rank 0, runs these steps
+with every rank in step, and reports the fullest card's peak memory.
 """
 
 from __future__ import annotations
@@ -132,18 +134,30 @@ def window(session, seconds: float) -> tuple[list, float]:
             return records, t1 - start
 
 
-def card(torch, device) -> dict:
-    """The card's name, count and power limit (nvidia-smi) beside the
-    result."""
+def card(torch, device, count: int = 1) -> dict:
+    """The card's name, the count of cards the run uses (``device`` and
+    the ``count - 1`` after it) and their power limits (nvidia-smi, one
+    line each) beside the result."""
     out = {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
-           "count": 1}
+           "count": count}
+    first = device.index or 0
+    ids = ",".join(str(i) for i in range(first, first + count))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader",
-         f"--id={device.index or 0}"],
+         f"--id={ids}"],
         capture_output=True, text=True, timeout=60)
     if smi.returncode == 0:
-        out["power_limit"] = smi.stdout.strip()
+        out["power_limit"] = "; ".join(
+            line.strip() for line in smi.stdout.splitlines() if line.strip())
     return out
+
+
+def memory_peak(torch, device) -> int:
+    """The peak of device memory this process allocated on ``device``, 0
+    off the card."""
+    if device.type != "cuda":
+        return 0
+    return int(torch.cuda.max_memory_allocated(device))
 
 
 def built_files() -> set:
@@ -158,10 +172,11 @@ def built_files() -> set:
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
-             device, t_start: float) -> dict:
+             device, t_start: float, group=None) -> dict:
     """One run of a cell; returns the result line's object.  ``t_start`` is
     the host clock at the process's start: set-up runs from it to the
-    window's start."""
+    window's start.  ``group``: on more than one card, rank 0's
+    ``ranks.Group``, which drives every rank's session in step."""
     import torch
 
     kind = importlib.import_module(f"benchmark.kinds.{cell.mix['kind']}")
@@ -169,13 +184,21 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
     before = built_files()
-    session = kind.Session(cell, seed, device)
+    session = (kind.Session(cell, seed, device) if group is None
+               else group.session(kind, cell, seed, device))
     setup_s = time.perf_counter() - t_start
     built = bool(built_files() - before)
     records, window_s = window(session, seconds)
-    dev_out = card(torch, device) if on_card else {"platform": "cpu"}
-    dev_out["memory_peak_bytes"] = (
-        int(torch.cuda.max_memory_allocated(device)) if on_card else 0)
+    dev_out = card(torch, device, cell.chips) if on_card else {
+        "platform": "cpu", "count": cell.chips}
+    peak = memory_peak(torch, device)
+    if group is None:
+        dev_out["memory_peak_bytes"] = peak
+    else:
+        # the fullest card's
+        by_rank = group.memory_peaks(peak)
+        dev_out.update(memory_peak_bytes=max(by_rank),
+                       memory_peak_bytes_by_rank=by_rank)
     ctx = Context(cell=cell, records=records, window_s=window_s,
                   setup_s=setup_s, session=session, device=device)
     metrics_of = cell.per_layer if trace else cell.end_to_end

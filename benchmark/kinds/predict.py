@@ -47,7 +47,11 @@ class Reservoir:
 
 
 class Session:
-    def __init__(self, cell, seed: int, device):
+    def __init__(self, cell, seed: int, device, mesh=None):
+        if mesh is not None:
+            raise ValueError("a prediction cell runs on one card: the "
+                             "predict kind takes no mesh (the sharded "
+                             "configurations users run are trainings)")
         from mlff_tpu_torch.models.predict import Predictor
 
         cfg, mix = cell.config, cell.mix

@@ -4,7 +4,9 @@ str_preconditioner=...)``, as the configuration states it.
 
 Mix parameters: ``warmup_iters``, the CG iterations of the set-up's one
 training (the same task and every shape of the window, capped).  The
-traced work is one whole training.
+traced work is one whole training.  On more than one card every rank
+builds the same session with the run's ``mesh``, and each training is
+row-sharded over it (``Trainer.train(mesh=)``).
 
 ``correct``: every model the window returned is judged by the plain
 reference (``reference.py``), which works the descriptors, the kernel
@@ -34,11 +36,12 @@ KEPT = ("alphas_F", "R_desc", "R_d_desc_alpha")
 
 
 class Session:
-    def __init__(self, cell, seed: int, device):
+    def __init__(self, cell, seed: int, device, mesh=None):
         from mlff_tpu_torch.models.gdml import Trainer
         from mlff_tpu_torch.models.task import create_task
 
         self.cfg, self.mix, self.device = cell.config, cell.mix, device
+        self.mesh = mesh
         self.ds, _ = data.dataset(self.cfg, seed)
         self.create_task = create_task
         self.trainer = Trainer(device=device)
@@ -66,7 +69,8 @@ class Session:
 
     def train(self, task: dict) -> dict:
         return self.trainer.train(task, n_columns=int(self.cfg["n_columns"]),
-                                  str_preconditioner=self.cfg["preconditioner"])
+                                  str_preconditioner=self.cfg["preconditioner"],
+                                  mesh=self.mesh)
 
     def request(self, i: int) -> dict:
         model = self.train(self.task())

@@ -13,9 +13,15 @@ program (the first run in a checkout builds the fused kernel into
 ``build/kernels``), so that such a run's ``setup_s`` can be set apart.
 Host threads are the libraries' defaults, as a user of the port has them.
 
+A cell on more than one card runs one process per card in one NCCL group
+(``ranks.py``): this process is rank 0 on ``cuda:0`` and prints the one
+result line, with ``count`` the cell's cards and ``memory_peak_bytes`` the
+fullest card's (``memory_peak_bytes_by_rank`` beside it).
+
 Exits non-zero, and prints no result, without a CUDA device or with fewer
-than the cell asks for, and when a module of JAX or of the JAX package has
-been loaded.  Build and kernel caches stay inside the checkout.
+than the cell asks for, when a module of JAX or of the JAX package has
+been loaded (in any rank), and when a rank of a cell on more than one card
+fails or ends early.  Build and kernel caches stay inside the checkout.
 """
 
 from __future__ import annotations
@@ -66,6 +72,10 @@ def main(argv=None) -> int:
         return 3
 
     cell = harness.find_cell(args.workload)
+    if cell.chips > 1:
+        from . import ranks
+
+        ranks.host_threads(cell.chips)
     import torch
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
@@ -73,11 +83,16 @@ def main(argv=None) -> int:
               f"torch sees {torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
-    device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
-    out = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                           device, T_START)
-    bad = harness.forbidden_modules()
+    if cell.chips == 1:
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+        out = harness.run_cell(cell, args.seed, args.seconds,
+                               bool(args.trace), device, T_START)
+        found = []
+    else:
+        out, found = ranks.run_cell(cell, args.seed, args.seconds,
+                                    bool(args.trace), T_START)
+    bad = sorted(set(harness.forbidden_modules()) | set(found))
     if bad:
         print(f"benchmark: forbidden modules loaded: {', '.join(bad)}",
               file=sys.stderr)

@@ -9,6 +9,7 @@ import re
 import pytest
 
 from benchmark import harness
+from benchmark.tests import tiny
 
 M = harness.load_json(harness.MANIFEST)
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -35,7 +36,7 @@ def test_names_units_and_keys():
         assert set(c) == {"name", "source", "file", "reduced", "why"}
     for w in M["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
     for m in M["end_to_end"]:
         assert set(m) - {"workloads"} == {"name", "unit", "better", "bound",
                                           "source"}
@@ -52,6 +53,61 @@ def test_names_units_and_keys():
             assert m["unit"] == "%"
 
 
+def chips_errors(m: dict) -> list:
+    """What breaks the rules of cells on more than one card: at most
+    max(1, a quarter of the cells, rounded down) of them; each a training
+    whose configuration's N divides over its cards (the row-sharded
+    operator needs it)."""
+    errors = []
+    work = m["workloads"]
+    multi = [w for w in work if w["chips"] > 1]
+    if len(multi) > max(1, len(work) // 4):
+        errors.append(f"{len(multi)} of {len(work)} cells on more than one "
+                      "card")
+    files = {c["name"]: c["file"] for c in m["configs"]}
+    for w in multi:
+        kind = harness.load_json(
+            harness.HERE / "traffic" / f"{w['traffic']}.json")["kind"]
+        if kind != "train":
+            errors.append(f"{w['name']}: a {kind} cell on {w['chips']} cards")
+        n = harness.load_json(harness.ROOT / files[w["config"]])["n_train"]
+        if n % w["chips"]:
+            errors.append(f"{w['name']}: N = {n} does not divide over "
+                          f"{w['chips']} cards")
+    return errors
+
+
+def test_cells_on_four_cards():
+    assert chips_errors(M) == []
+
+
+def sharded(tmp_path, n_train: int, cells) -> dict:
+    """The manifest with a configuration of ``n_train`` points and cells
+    ``(name, traffic)`` on four cards of it."""
+    c = harness.load_json(harness.ROOT / M["configs"][0]["file"])
+    path = tmp_path / "ethanol-sharded.json"
+    path.write_text(json.dumps(dict(c, name="ethanol-sharded",
+                                    n_train=n_train)))
+    config = dict(M["configs"][0], name="ethanol-sharded", file=str(path))
+    return dict(M, configs=M["configs"] + [config], workloads=M["workloads"] + [
+        {"name": name, "config": "ethanol-sharded", "traffic": traffic,
+         "chips": 4, "why": "rehearsal"} for name, traffic in cells])
+
+
+@pytest.mark.parametrize("n_train, cells, error", [
+    (5832, [("a", "train")], None),
+    (5832, [("a", "train"), ("b", "md")], f"2 of {len(CELLS) + 2} cells"),
+    (5832, [("a", "predict")], "a predict cell on 4 cards"),
+    (5833, [("a", "train")], "N = 5833 does not divide over 4 cards"),
+], ids=["room", "past_the_share", "not_training", "rows_do_not_divide"])
+def test_cells_on_four_cards_rules(tmp_path, n_train, cells, error):
+    errors = chips_errors(sharded(tmp_path, n_train, cells))
+    if error is None:
+        assert errors == []
+    else:
+        assert any(error in e for e in errors), errors
+
+
 def test_workloads_key_alone_picks_the_cells():
     """A metric's ``workloads`` names its cells; without the key every cell
     reports it, whatever it moves."""
@@ -64,9 +120,19 @@ def test_workloads_key_alone_picks_the_cells():
     assert [x["name"] for x in last.per_layer] == ["x"]
 
 
-@pytest.mark.parametrize("name", CELLS)
+def test_held_back_cells_are_out_of_the_manifest():
+    """A held-back cell's entries name nothing ``BENCHMARK.json`` has, and
+    bring back entries of every kind they left."""
+    names = {x["name"] for k in ("workloads", "end_to_end", "per_layer")
+             for x in M[k]}
+    held = {x["name"] for k in tiny.HELD_BACK for x in tiny.HELD_BACK[k]}
+    assert tiny.HELD_CELLS and not names & held
+    assert set(tiny.HELD_BACK) == {"workloads", "end_to_end", "per_layer"}
+
+
+@pytest.mark.parametrize("name", CELLS + tiny.HELD_CELLS)
 def test_cell_found_by_name(name):
-    cell = harness.find_cell(name)
+    cell = harness.find_cell(name, tiny.manifest())
     e2e = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2
     assert cell.per_layer
@@ -110,6 +176,7 @@ def test_nothing_forbidden_is_loaded_by_a_run(tmp_path):
     import sys
 
     code = ("import benchmark.run, benchmark.harness, benchmark.devtrace, "
+            "benchmark.ranks, "
             "benchmark.calibrate, benchmark.kinds.train, "
             "benchmark.kinds.predict; "
             "import mlff_tpu_torch.models.gdml, mlff_tpu_torch.models.task, "

@@ -15,7 +15,8 @@ from benchmark.tests import tiny
 from mlff_tpu_torch.utils import trace
 
 M = harness.load_json(harness.MANIFEST)
-CELLS = [w["name"] for w in M["workloads"]]
+# the manifest's cells and the held-back ones, whose files stay
+CELLS = [w["name"] for w in M["workloads"]] + tiny.HELD_CELLS
 SPAN_METRICS = {"train.descriptors_s", "train.leverage_s",
                 "train.nystrom_host_s", "train.cg_enqueue_ms_per_iter",
                 "train.cg_read_ms_per_iter", "train.cg_device_ms_per_iter",
@@ -45,7 +46,8 @@ def test_span_readers_rehearsed(name):
 
 
 def test_span_metrics_are_in_the_manifest():
-    assert SPAN_METRICS <= {m["name"] for m in M["per_layer"]}
+    """In ``BENCHMARK.json``, or in a held-back cell's entries."""
+    assert SPAN_METRICS <= {m["name"] for m in tiny.manifest()["per_layer"]}
 
 
 def scripted(monkeypatch, ticks):
