@@ -148,9 +148,9 @@ Phases, each printing one JSON line of its own numbers:
                  within 1 of train_catcher's.  Each part: alphas within
                  1e-6 of max|alpha| of the unsharded model, the Gram guard
                  quiet, collectives per CG iteration and, for (a) and (b),
-                 a second, timed run with a synchronize around each
-                 collective: their milliseconds per iteration; the phase's
-                 seconds
+                 a second, recorded run: the host's milliseconds per
+                 iteration issuing the collectives (the ``mesh.collective``
+                 spans, which synchronize nothing); the phase's seconds
   bench          the measurement tools at their published sizes: (a)
                  ``python3 -m mlff_tpu_torch.tools.bench`` in a fresh process
                  (its first-use costs real), converged, iterations within 2
@@ -1742,11 +1742,12 @@ def cli_ecstr(small: dict) -> None:
 
 class CgCollectives:
     """A train callback (once per CG chunk): the collectives launched per
-    iteration (the counter ``mesh.collectives``), with their milliseconds
-    when the training is recorded (``rec``: the ``mesh.collective`` spans of
-    ``utils.trace``, each synchronized), over the whole chunks after the
-    first (the last chunk also runs masked iterations past convergence,
-    which launch their collectives too)."""
+    iteration (the counter ``mesh.collectives``), with the host's
+    milliseconds issuing them when the training is recorded (``rec``: the
+    ``mesh.collective`` spans of ``utils.trace``, which synchronize
+    nothing), over the whole chunks after the first (the last chunk also
+    runs masked iterations past convergence, which launch their
+    collectives too)."""
 
     def __init__(self, rec=None):
         self.rec = rec
@@ -1790,20 +1791,22 @@ def sharded_train(torch, dev, task, mesh, k, timed, extra=None):
                collectives_per_iter=calls_it,
                gram_guard_fired=bool(info["nystrom"]["gram_guard_fired"]))
     if timed:
-        row.update(collective_s=sum(
+        row.update(collective_enqueue_s=sum(
                        s.seconds for s in rec.named("mesh.collective")),
-                   collective_ms_per_iter=ms_it)
+                   collective_enqueue_ms_per_iter=ms_it)
     return m, row
 
 
 def sharded_pair(torch, dev, task, mesh, k, extra=None):
-    """sharded_train untimed, then timed for the collectives' time: the
-    untimed run's model and row, with the timed run's collective numbers."""
+    """sharded_train untimed, then recorded for the host's time issuing the
+    collectives: the untimed run's model and row, with the recorded run's
+    collective numbers."""
     m, row = sharded_train(torch, dev, task, mesh, k, False, extra)
     _, timed = sharded_train(torch, dev, task, mesh, k, True, extra)
     row.update(iters_timed=timed["iters"], train_s_timed=timed["train_s"],
-               collective_s=timed["collective_s"],
-               collective_ms_per_iter=timed["collective_ms_per_iter"])
+               collective_enqueue_s=timed["collective_enqueue_s"],
+               collective_enqueue_ms_per_iter=timed[
+                   "collective_enqueue_ms_per_iter"])
     return m, row
 
 

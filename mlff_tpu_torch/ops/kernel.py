@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import require_full_f32, resolve_device
+from ..utils import trace
 from ..utils.log import get_logger
 from .descriptor import DescriptorSpec, d_desc_dot_vec, vec_dot_d_desc
 
@@ -267,6 +268,9 @@ def perm_expand_w(w: torch.Tensor, P_idx: torch.Tensor) -> torch.Tensor:
 # row tile of the on-the-fly matvec: (tile, M) pairwise transients
 _OTF_TILE = 4096
 
+# counter (utils.trace): row tiles the on-the-fly matvec has run
+OTF_TILES = "matvec.otf_tiles"
+
 # elements budget for one (tile, M) OTF transient, the JAX package's rule
 # kept verbatim (there it bounds the f64 emulation's 8-way split
 # transients); MLFF_OTF_TILE_BUDGET overrides it
@@ -294,7 +298,10 @@ def _matvec_ref_otf(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
     """K_ref @ v with the pairwise weights recomputed per row tile (the
     cache carries no (N, M) arrays: ``build_cache(pairwise=False)``).  Per
     tile: one (tile, D) x (D, M) distance product, exp, and the three
-    products of ``_desc_forces_x``; the last tile is a shorter slice."""
+    products of ``_desc_forces_x``; the last tile is a shorter slice.
+    While ``utils.trace`` records, the tile loop (not the all-gather of the
+    cotangents before it) is a span ``matvec.otf``; the tiles run are
+    counted in ``OTF_TILES``."""
     N = cache.n_train
     A = cache.S.shape[1]
     w = d_desc_dot_vec(cache.Jc, cache.S, v.reshape(N, A, 3))   # (N, D)
@@ -306,13 +313,15 @@ def _matvec_ref_otf(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
     c0 = 5.0 / (3.0 * cache.sig**2)
     F_desc = torch.empty_like(cache.Xq)
     tile = _otf_tile(N, cache.Xqt.shape[0])
-    for start in range(0, N, tile):
-        Xq_t = cache.Xq[start:start + tile]                     # (tile, D)
-        dist = pairwise_dist_gram(Xq_t, cache.Xqt)              # (tile, M)
-        A_exp = c0 * torch.exp(-dist)
-        A_exp1 = A_exp * (1.0 + dist)
-        F_desc[start:start + tile], _ = _desc_forces_x(
-            cache.Xqt, cache.sig, Xq_t, A_exp, A_exp1, wt, energies=False)
+    with trace.span("matvec.otf"):
+        for start in range(0, N, tile):
+            Xq_t = cache.Xq[start:start + tile]                 # (tile, D)
+            dist = pairwise_dist_gram(Xq_t, cache.Xqt)          # (tile, M)
+            A_exp = c0 * torch.exp(-dist)
+            A_exp1 = A_exp * (1.0 + dist)
+            F_desc[start:start + tile], _ = _desc_forces_x(
+                cache.Xqt, cache.sig, Xq_t, A_exp, A_exp1, wt, energies=False)
+    trace.count(OTF_TILES, -(-N // tile))
     return vec_dot_d_desc(cache.Jc, cache.S,
                           F_desc.to(cache.Jc.dtype)).reshape(-1)
 

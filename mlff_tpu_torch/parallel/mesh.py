@@ -14,7 +14,8 @@ its rows and the collectives are written out (``RowShard``):
     square layout's wt (M, A*A) together with its training side,
   * length-n vectors are sharded by rows; PCG all-reduces its dot products,
     every Woodbury apply its (m,) partial B^T v, the Nystrom build its
-    (m, m) Gram,
+    (m, m) Gram; rank 0 alone runs the build's host LAPACK and broadcasts
+    each (m, m) factor,
   * column assembly gathers the column points' descriptors and Jacobians
     once and forms its own rows of K[:, idx] (``column_side``).
 
@@ -112,8 +113,10 @@ class RowShard:
         """``fn`` on the tensor as the backend takes it (a host copy for gloo
         and a CUDA tensor); the result comes back on t's device.  Counted
         in the counter ``mesh.collectives``, and while ``utils.trace``
-        records, a span ``mesh.collective`` with the device synchronized
-        at both ends."""
+        records, a span ``mesh.collective``: the host's time to issue it
+        (nothing is synchronized, so recording leaves the schedule as it
+        is; the device's time is in the profiler's records of the
+        call)."""
         global _STAGING_LOGGED
         stage = self.backend == "gloo" and t.is_cuda
         if stage and not _STAGING_LOGGED:
@@ -121,7 +124,7 @@ class RowShard:
             log.info("gloo backend with CUDA tensors: every collective is "
                      "staged through host memory (the caller chose gloo)")
         src = t.detach().cpu() if stage else t.detach().contiguous()
-        with trace.span("mesh.collective", sync=t.device):
+        with trace.span("mesh.collective"):
             out = fn(src)
         trace.count("mesh.collectives")
         return out if not stage else out.to(t.device)
@@ -142,6 +145,16 @@ class RowShard:
             # a host copy is fresh; anything else may share t's storage
             buf = src if src.device != t.device else src.clone()
             dist.all_reduce(buf, op=op, group=self.group)
+            return buf
+        return self._comm(fn, t)
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank ``src``'s t on every rank, into a new tensor (the others
+        pass a tensor of its shape and dtype)."""
+        def fn(buf):
+            buf = buf if buf.device != t.device else buf.clone()
+            dist.broadcast(buf, src=dist.get_global_rank(self.group, src),
+                           group=self.group)
             return buf
         return self._comm(fn, t)
 

@@ -43,8 +43,9 @@ digit plane) holds this rank's rows, the fused T its columns, W2 and lam
 are replicated, and its ``layout`` (``parallel.mesh.VecLayout``) makes each
 apply all-reduce its (m,) partial B^T v.  The Nystrom build all-reduces
 its Gram, gathers K_mm from the rows' owners and probes the Gram of the
-stored, sharded B; the dense diagnostics run replicated on the gathered
-cache and keep their rows.
+stored, sharded B; its host LAPACK runs on rank 0 alone, which broadcasts
+each (m, m) factor (``_host_factor``); the dense diagnostics run
+replicated on the gathered cache and keep their rows.
 """
 
 from __future__ import annotations
@@ -117,6 +118,31 @@ def _rows_at(layout, t: torch.Tensor, idx) -> torch.Tensor:
 def _sum_ranks(layout, t: torch.Tensor) -> torch.Tensor:
     """A per-rank partial sum over rows, summed over the ranks."""
     return t if layout is None else layout.shard.all_reduce(t)
+
+
+def _host_factor(layout, fn, M: np.ndarray, *args, device) -> torch.Tensor:
+    """``fn(M, *args)``, an (m, m) host-LAPACK factor of the replicated
+    matrix M, as an f64 tensor on ``device``.  On a sharded layout rank 0
+    alone computes it and broadcasts it: every rank holds the same bits,
+    and the host's cores serve one LAPACK call rather than one per rank.
+    A LAPACK failure on rank 0 is raised on every rank."""
+    if layout is None:
+        return torch.as_tensor(fn(M, *args), dtype=torch.float64,
+                               device=device)
+    shard = layout.shard
+    F = err = None
+    if shard.rank == 0:
+        try:
+            F = fn(M, *args)
+        except np.linalg.LinAlgError as e:
+            err = e
+    if shard.any(err is not None):
+        raise err or np.linalg.LinAlgError(
+            "the host factorization failed on rank 0")
+    buf = (torch.as_tensor(F, dtype=torch.float64, device=device)
+           if F is not None else
+           torch.empty(M.shape, dtype=torch.float64, device=device))
+    return shard.broadcast(buf)
 
 
 def _oz_slice_T(X: torch.Tensor, s: int):
@@ -268,10 +294,13 @@ class WoodburySplitPreconditioner:
 def woodbury_split_apply(P: WoodburySplitPreconditioner,
                          v: torch.Tensor) -> torch.Tensor:
     """lam^-1 (v - B W2 W2^T B^T v): two skinny (n, m) passes (DGEMV) and
-    two small (m, m) ones."""
-    u = _sum_ranks(P.layout, P.B.T @ v)   # (m,)  == B^T v
-    x = P.W2 @ (P.W2.T @ u)               # (m,)
-    return (v - P.B @ x) / P.lam
+    two small (m, m) ones.  On a sharded layout, while ``utils.trace``
+    records, the apply is a span ``precon.apply`` (its all-reduce a
+    ``mesh.collective`` inside it); on one card nothing is recorded."""
+    with trace.NULL if P.layout is None else trace.span("precon.apply"):
+        u = _sum_ranks(P.layout, P.B.T @ v)   # (m,)  == B^T v
+        x = P.W2 @ (P.W2.T @ u)               # (m,)
+        return (v - P.B @ x) / P.lam
 
 
 # rows per pass of the chunked apply (the JAX package's _APPLY_CHUNK_ROWS)
@@ -693,8 +722,8 @@ def woodbury_from_factor(L: torch.Tensor, lam: float, layout=None
     all-reduced)."""
     n_rows = L.shape[0] if layout is None else layout.n
     inner = _host_sym(_sum_ranks(layout, _gram(L, _gram_impl_for(n_rows))))
-    W2 = torch.as_tensor(_host_inner_isqrt(inner, lam, "chol"),
-                         dtype=torch.float64, device=L.device)
+    W2 = _host_factor(layout, _host_inner_isqrt, inner, lam, "chol",
+                      device=L.device)
     B, W2 = _pad_split(L, W2)
     return WoodburySplitPreconditioner(B=B, W2=W2, lam=float(lam),
                                        info={"apply_impl": "xla"},
@@ -722,8 +751,8 @@ def _nystrom_factor_split(
     with trace.stages("precon.nystrom", sync=dev) as t:
         K_mm = _host_sym(_rows_at(layout, K_nm, inducing_idxs))
         t.mark("gather_Kmm")
-        W1 = torch.as_tensor(_host_whiten_factor(K_mm, rank_tol, host_decomp),
-                             dtype=torch.float64, device=dev)
+        W1 = _host_factor(layout, _host_whiten_factor, K_mm, rank_tol,
+                          host_decomp, device=dev)
         t.mark("host_W1")
         # the Gram engine is the build mode at every n (_gram_impl_for)
         impl = _build_mode()
@@ -745,8 +774,8 @@ def _nystrom_factor_split(
             B_host = (B if layout is None else layout.gather(B)).cpu().numpy()
             inner = B_host.T @ B_host
         t.mark("gram_probe")
-        W2 = torch.as_tensor(_host_inner_isqrt(inner, lam, host_decomp),
-                             dtype=torch.float64, device=dev)
+        W2 = _host_factor(layout, _host_inner_isqrt, inner, lam,
+                          host_decomp, device=dev)
         t.mark("host_W2")
     _log_stages("nystrom factor stages", t.seconds)
     info = {"gram_guard_fired": bool(fired), "gram_probe_err": probe_err,
@@ -851,8 +880,8 @@ def _nystrom_factor_split_colblocked(
             [_rows_at(layout, K_c, inducing_idxs).cpu().numpy()
              for K_c in blocks], axis=1)
         t.mark("gather_Kmm")
-        W1 = torch.as_tensor(_host_whiten_factor(K_mm, rank_tol, "chol"),
-                             dtype=torch.float64, device=dev)
+        W1 = _host_factor(layout, _host_whiten_factor, K_mm, rank_tol,
+                          "chol", device=dev)
         t.mark("host_W1")
         mode = _build_mode()
         gram_impl = _gram_impl_for(blocks[0].shape[0] if layout is None
@@ -892,8 +921,8 @@ def _nystrom_factor_split_colblocked(
                  for B_c in blocks], axis=1)
             inner = B_host.T @ B_host
         t.mark("gram_probe")
-        W2 = torch.as_tensor(_host_inner_isqrt(inner, lam, "chol"),
-                             dtype=torch.float64, device=dev)
+        W2 = _host_factor(layout, _host_inner_isqrt, inner, lam, "chol",
+                          device=dev)
         t.mark("host_W2")
     _log_stages("nystrom colblock factor stages", t.seconds)
     info = {"gram_guard_fired": bool(fired), "gram_probe_err": probe_err,

@@ -18,9 +18,7 @@ did: ``timed`` (``cache_build_s``, ``total_time_preconditioner``,
 ``info["nystrom"]["stages"]``).
 
 While recording, spans stay in memory, in ``Recorder.spans``, and recording
-adds no device synchronization, but for a span opened with ``sync=``, which
-synchronizes the device before each of its two clock reads (the mesh's
-collectives).  The recorder reads ``time.time_ns() - time.perf_counter_ns()``
+adds no device synchronization.  The recorder reads ``time.time_ns() - time.perf_counter_ns()``
 once when it opens, so ``Recorder.epoch`` places a span on the Unix-epoch
 timeline that ``torch.profiler``'s (Kineto's) host and device records share.
 No span opens ``record_function`` or any other profiler range: the profiler
@@ -98,10 +96,10 @@ class Span:
     reads the clock."""
 
     __slots__ = ("name", "start", "end", "id", "parent", "request", "attrs",
-                 "_rec", "_sync", "_root")
+                 "_rec", "_root")
 
-    def __init__(self, name, rec=None, sync=None, root=False):
-        self.name, self._rec, self._sync, self._root = name, rec, sync, root
+    def __init__(self, name, rec=None, root=False):
+        self.name, self._rec, self._root = name, rec, root
         self.id = self.parent = self.request = self.attrs = None
 
     @property
@@ -116,16 +114,12 @@ class Span:
             self.attrs[key] = int(value)
 
     def __enter__(self):
-        if self._sync is not None:
-            _sync(self._sync)
         self.start = time.perf_counter()
         if self._rec is not None:
             self._rec._open(self, self._root)
         return self
 
     def __exit__(self, *exc):
-        if self._sync is not None:
-            _sync(self._sync)
         self.end = time.perf_counter()
         if self._rec is not None:
             self._rec._close(self)
@@ -157,13 +151,12 @@ def _active():
     return rec
 
 
-def span(name: str, sync=None):
-    """A span named ``name``; ``NULL`` when not recording.  ``sync``: a
-    device to synchronize before each clock read, while recording only."""
+def span(name: str):
+    """A span named ``name``; ``NULL`` when not recording."""
     if _rec is None:
         return NULL
     rec = _active()
-    return NULL if rec is None else Span(name, rec, sync)
+    return NULL if rec is None else Span(name, rec)
 
 
 def request(name: str):

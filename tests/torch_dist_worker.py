@@ -383,6 +383,87 @@ def ecstr_operator(mesh, R, perms, v, idxs, idxs_any, k, sig=10.0,
     return out
 
 
+def otf_matvec(mesh, R, perms, v, sig=10.0, lam=1e-10):
+    """The on-the-fly matvec on a row-sharded cache built as the Trainer
+    builds it, (K + lam I) v gathered whole; and, while recording, what a
+    sharded on-the-fly and a sharded cached matvec leave: the
+    ``matvec.otf`` spans, the tiles counted, the ``mesh.collective`` spans
+    and every synchronize the tracer made."""
+    import torch
+
+    from mlff_tpu_torch.ops import kernel as tk
+    from mlff_tpu_torch.parallel import mesh as pmesh
+    from mlff_tpu_torch.utils import trace
+
+    _, otf = _cache(R, sig, lam, perms, pairwise=False)
+    _, cached = _cache(R, sig, lam, perms)
+    out = {}
+    synced = []
+    real_sync = trace._sync
+    trace._sync = synced.append
+    try:
+        for route, cache in (("otf", otf), ("cached", cached)):
+            sh = pmesh.shard_cache(cache, mesh)
+            v_loc = tk.vector_layout(sh).scatter(torch.as_tensor(v))
+            with trace.recording() as rec:
+                Kv = tk.matvec_psd(sh, v_loc)
+            out[route] = {
+                "matvec": pmesh.gather_vector(Kv, mesh).numpy(),
+                "otf_spans": len(rec.named("matvec.otf")),
+                "otf_tiles": rec.counted(tk.OTF_TILES),
+                "collective_spans": len(rec.named("mesh.collective")),
+                "collectives": rec.counted("mesh.collectives")}
+    finally:
+        trace._sync = real_sync
+    out["synced"] = [str(d) for d in synced]
+    return out
+
+
+def train_otf(mesh, task, **kw):
+    """``train``, recorded, with the Trainer's rule sending every cache to
+    the on-the-fly matvec: the model's arrays (``R_desc`` too), the
+    ``matvec.otf`` spans and tiles of the training, its ``precon.apply``
+    spans with the collectives opened inside them, and the host-LAPACK
+    factors of its Nystrom builds that this rank computed."""
+    from mlff_tpu_torch.models.gdml import Trainer
+    from mlff_tpu_torch.ops import kernel as tk
+    from mlff_tpu_torch.solvers import preconditioners as tpc
+    from mlff_tpu_torch.utils import trace
+
+    real = Trainer._pairwise_fits
+    host_fns = {f: getattr(tpc, f) for f in ("_host_whiten_factor",
+                                             "_host_inner_isqrt")}
+    factored = []
+
+    def counted(f):
+        def fn(*a, **k):
+            factored.append(f)
+            return host_fns[f](*a, **k)
+        return fn
+
+    Trainer._pairwise_fits = staticmethod(lambda n_train, n_perms: False)
+    for f in host_fns:
+        setattr(tpc, f, counted(f))
+    try:
+        with trace.recording() as rec:
+            m = Trainer(device="cpu").train(dict(task), mesh=mesh, **kw)
+    finally:
+        Trainer._pairwise_fits = real
+        for f, fn in host_fns.items():
+            setattr(tpc, f, fn)
+    out = {k: np.asarray(m[k]) for k in ("alphas_F", "R_desc",
+                                         "R_d_desc_alpha", "solver_iters",
+                                         "is_conv")}
+    out["otf_spans"] = len(rec.named("matvec.otf"))
+    out["otf_tiles"] = rec.counted(tk.OTF_TILES)
+    applies = {s.id for s in rec.named("precon.apply")}
+    out["apply_spans"] = len(applies)
+    out["apply_collectives"] = sum(1 for s in rec.named("mesh.collective")
+                                   if s.parent in applies)
+    out["host_factors"] = factored
+    return out
+
+
 SCENARIOS = {f.__name__: f for f in (operator, column_routes, uneven, precon,
                                      df64_build, square_matvec, train, predict, pcg,
-                                     ecstr_operator)}
+                                     ecstr_operator, otf_matvec, train_otf)}
