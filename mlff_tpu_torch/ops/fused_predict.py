@@ -1,4 +1,5 @@
-"""Fused descriptor-space force/energy contraction for prediction.
+"""Fused descriptor-space force/energy contraction for prediction and for
+the on-the-fly training matvec.
 
 The CUDA kernel ``csrc/fused_predict.cu`` replaces the TPU kernel
 ``mlff_tpu/ops/pallas_predict.py::_contract_kernel`` and the Gram-trick
@@ -33,6 +34,11 @@ each other when the library is loaded.  ``desc_forces_fused`` launches the kerne
 tensors (or raises) and runs the plain PyTorch version
 ``desc_forces_fused_ref`` for CPU tensors.  The counter ``LAUNCHES`` of
 ``utils.trace`` counts the calls that launched the kernel.
+
+Two callers share it: the fast Predictor (``models/predict.py``), and the
+on-the-fly matvec of a training whose (N, M) weights do not fit
+(``ops/kernel.py::_matvec_ref_otf``), which takes F alone and calls it
+once per CG iteration over all its N rows, queries being training points.
 """
 
 from __future__ import annotations

@@ -15,8 +15,11 @@ base_p = 5 exp(-n_p / sig) / (3 sig^4).
 The pairwise distance matrix, its exponential and the (1 + dist) weight are
 computed once per solve (``KernelCache``); each CG iteration is then three
 (N, M) x (M, D) f64 products (cuBLAS DGEMM on the card) plus elementwise
-work.  Above 3 GB of such caches the matvec recomputes them per row tile
-instead (``build_cache(pairwise=False)``, ``_matvec_ref_otf``).  Dense
+work.  Above 3 GB of such caches the matvec recomputes them in every call
+instead (``build_cache(pairwise=False)``, ``_matvec_ref_otf``): on the card
+in one call of the fused contraction kernel (``ops/fused_predict.py``),
+which keeps the (N, M) weights out of device memory; on the CPU, and for
+an f32 copy, per row tile in plain PyTorch.  Dense
 assembly (``assemble_block``, ``assemble_full``), the kernel diagonal and
 single columns serve the pivoted-Cholesky, eigenvector and analytic solvers.
 Large molecules take inflation-free routes: compressed columns and diagonal
@@ -268,8 +271,10 @@ def perm_expand_w(w: torch.Tensor, P_idx: torch.Tensor) -> torch.Tensor:
 # row tile of the on-the-fly matvec: (tile, M) pairwise transients
 _OTF_TILE = 4096
 
-# counter (utils.trace): row tiles the on-the-fly matvec has run
+# counters (utils.trace): row tiles the on-the-fly matvec's plain loop has
+# run, and on-the-fly matvecs run through the fused kernel
 OTF_TILES = "matvec.otf_tiles"
+OTF_FUSED = "matvec.otf_fused"
 
 # elements budget for one (tile, M) OTF transient, the JAX package's rule
 # kept verbatim (there it bounds the f64 emulation's 8-way split
@@ -295,13 +300,22 @@ def _otf_tile(N: int, M: int) -> int:
 
 
 def _matvec_ref_otf(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
-    """K_ref @ v with the pairwise weights recomputed per row tile (the
-    cache carries no (N, M) arrays: ``build_cache(pairwise=False)``).  Per
-    tile: one (tile, D) x (D, M) distance product, exp, and the three
-    products of ``_desc_forces_x``; the last tile is a shorter slice.
-    While ``utils.trace`` records, the tile loop (not the all-gather of the
-    cotangents before it) is a span ``matvec.otf``; the tiles run are
-    counted in ``OTF_TILES``."""
+    """K_ref @ v with the pairwise weights recomputed in every call (the
+    cache carries no (N, M) arrays: ``build_cache(pairwise=False)``).
+
+    An f64 cache on the card takes all its rows in one call of the fused
+    contraction kernel (``fused_predict.desc_forces_fused``, the narrow
+    route to D = 129, the wide one beyond; its energies are dropped), which
+    forms distances and weights on its tiles: no (N, M) array reaches
+    device memory.  Such calls are counted in ``OTF_FUSED``.  A CPU cache,
+    and an f32 ``downcast_cache`` copy, run the plain version: per row tile
+    one (tile, D) x (D, M) distance product, exp, and the three products of
+    ``_desc_forces_x``, the last tile a shorter slice; the tiles run are
+    counted in ``OTF_TILES``.  While ``utils.trace`` records, the kernel's
+    launches or the tile loop (not the all-gather of the cotangents before
+    them) are a span ``matvec.otf``.  A CUDA graph of the CG iteration
+    adds the capture's counts once per replay (``trace.counted``), so
+    replayed matvecs are counted too."""
     N = cache.n_train
     A = cache.S.shape[1]
     w = d_desc_dot_vec(cache.Jc, cache.S, v.reshape(N, A, 3))   # (N, D)
@@ -310,6 +324,23 @@ def _matvec_ref_otf(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
     # f32 (the JAX package promotes this variant's products to f64 against
     # its f64 cotangents; torch does not promote in a product)
     wt = perm_expand_w(_at_cache_dtype(cache, w), cache.P_idx)  # (M, D)
+    if cache.Xq.is_cuda and cache.Xq.dtype == torch.float64:
+        from .fused_predict import desc_forces_fused
+
+        with trace.span("matvec.otf"):
+            F_desc, _ = desc_forces_fused(cache.Xq, cache.Xqt, wt, cache.sig)
+        trace.count(OTF_FUSED)
+    else:
+        F_desc = _desc_forces_otf_tiles(cache, wt)
+    return vec_dot_d_desc(cache.Jc, cache.S,
+                          F_desc.to(cache.Jc.dtype)).reshape(-1)
+
+
+def _desc_forces_otf_tiles(cache: KernelCache,
+                           wt: torch.Tensor) -> torch.Tensor:
+    """The on-the-fly matvec's (N, D) descriptor forces in plain PyTorch,
+    per row tile of ``_otf_tile``."""
+    N = cache.n_train
     c0 = 5.0 / (3.0 * cache.sig**2)
     F_desc = torch.empty_like(cache.Xq)
     tile = _otf_tile(N, cache.Xqt.shape[0])
@@ -322,8 +353,7 @@ def _matvec_ref_otf(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
             F_desc[start:start + tile], _ = _desc_forces_x(
                 cache.Xqt, cache.sig, Xq_t, A_exp, A_exp1, wt, energies=False)
     trace.count(OTF_TILES, -(-N // tile))
-    return vec_dot_d_desc(cache.Jc, cache.S,
-                          F_desc.to(cache.Jc.dtype)).reshape(-1)
+    return F_desc
 
 
 def _at_cache_dtype(cache: KernelCache, w: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,12 @@ The cases: calibrated ethanol (D = 36) with 1166 training geometries
 (M = 6996) at B = 512 (``full``), B = 7 against a ragged M (``ragged``), the
 first 512 training descriptors as queries (``self``: zero distances), B = 1
 (``one``) and B = 60 (``held_out``); uracil (D = 66), toluene (D = 105) and
-salicylic acid (D = 120) for the kernel's wider instantiations.
+salicylic acid (D = 120) for the kernel's wider instantiations; and the
+on-the-fly training matvec's call on one of four ranks at n = 157,464
+(``otf``: 5832 training geometries, M = 34,992, the first 1458 permuted
+training rows as queries), timed beside the plain tile loop that a CPU
+cache runs (``tiles_ms``: ``ops/kernel.py::_desc_forces_otf_tiles``, its
+rows in tiles of 768).
 
 ``--variant`` names further sources with the same C interface
 (``mlff_fused_predict``, ``mlff_fused_predict_geometry``): each is built with
@@ -81,8 +86,9 @@ CASES = (("full", "ethanol", 1166, 512, 0, False),
          ("held_out", "ethanol", 1166, 60, 0, False),
          ("uracil", "uracil", 3000, 512, 5, False),
          ("toluene", "toluene", 600, 512, 5, False),
-         ("salicylic", "salicylic", 3000, 512, 5, False))
-TIMED = ("full", "one", "held_out", "uracil", "toluene", "salicylic")
+         ("salicylic", "salicylic", 3000, 512, 5, False),
+         ("otf", "ethanol", 5832, 1458, 0, True))
+TIMED = ("full", "one", "held_out", "uracil", "toluene", "salicylic", "otf")
 HOST_TIMED = ("one", "held_out")
 
 
@@ -216,6 +222,15 @@ def errors(got, want) -> dict:
                          and (err <= ATOL_REL * scale + RTOL * w.abs()).all())
     out["ok"] = ok
     return out
+
+
+def otf_tiles(Xq, Xqt, wt) -> torch.Tensor:
+    """The on-the-fly matvec's plain tile loop over the queries ``Xq`` as
+    a cache's rows: its (B, D) descriptor forces."""
+    cache = knl.KernelCache(X=Xq, Jc=None, S=None, P_idx=None, Xq=Xq,
+                            Xqt=Xqt, A_exp=None, A_exp1=None, sig=SIG,
+                            lam=0.0)
+    return knl._desc_forces_otf_tiles(cache, wt)
 
 
 def variant_plan(lib, B: int, M: int, D: int, n_sm: int) -> fp.Plan:
@@ -392,6 +407,10 @@ def main() -> None:
                 failed = failed or not row["same_bits_twice"]
         if label in TIMED and not args.check_only:
             fns = {"plain": lambda: fp.desc_forces_fused_ref(*ops, SIG)}
+            if label == "otf":
+                fns["tiles"] = lambda: otf_tiles(*ops)
+                row["tiles_rel_err_F"] = errors(
+                    (otf_tiles(*ops), want[1]), want)["rel_err_F"]
             for name, call in calls.items():
                 fns[name] = lambda call=call: call(*ops)
             bound_s, bound_by = fp.bound_seconds(B, Mr, D, F64_PEAK, MEM_RATE)

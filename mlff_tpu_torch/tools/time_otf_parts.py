@@ -19,9 +19,11 @@ OTF matvec at 7 digits (``ops/ozaki.py``):
     horner64    the 28 digit-pair partials of gemmD, weighted and summed in
                 f64: the accumulation alone
 
-Then the pieces of the port's default (f64) OTF route,
-``ops/kernel.py::_matvec_ref_otf``, at the tile ``_otf_tile`` picks for
-N = M / 6 training points (256 rows at n = 503,982):
+Then the pieces of the OTF route's plain tile loop,
+``ops/kernel.py::_desc_forces_otf_tiles`` (what a CPU or f32 cache runs; an
+f64 cache on the card takes the fused kernel instead), at the tile
+``_otf_tile`` picks for N = M / 6 training points (256 rows at
+n = 503,982):
 
     otf_dist     pairwise_dist_gram of the tile against the (M, D) side
     otf_weights  A_exp = c exp(-dist), A_exp1 = A_exp (1 + dist)

@@ -21,8 +21,10 @@ relative, the tolerance of ``tests/test_df64.py``; the df64 training, like
 ``chip_smoke.py``'s reference phase, to +-2 iterations and 1e-4 * max|F|.
 The wide route (D > 129) is held to its plain version at 1e-10 as the
 narrow widths are, at D = 130, 210, 3,828 and 68,265.  The on-the-fly
-matvec and the square matvec are held to the cached packed matvec (1e-12,
-1e-10).  The greedy pivoted Cholesky on the card is held to the port's own
+matvec, one fused-kernel call on the card, and the square matvec are held
+to the cached packed matvec (1e-12, 1e-10); the wide route's on-the-fly
+matvec to the CPU's tile loop (1e-12), and a graphed on-the-fly PCG solve
+to the CPU's (iterations within 2, solutions within 1e-10).  The greedy pivoted Cholesky on the card is held to the port's own
 CPU run on a random geometry (equal pivots, L to 1e-10, below the rank where
 translation ties appear, see ``tests/test_torch_zoo.py``) and queues its
 steps without a host read.  The energy-constrained matvec, energy blocks and
@@ -309,9 +311,18 @@ def test_kernel_geometry_is_the_plans(small):
     assert min(wide[10:12]) >= fp.WIDE.blocks_per_sm
 
 
-def test_otf_matvec_matches_the_cached_matvec(small, monkeypatch):
-    """The on-the-fly matvec on the card, tiles of the 128-row floor with a
-    ragged last one, against the cached matvec at 1e-12."""
+def _otf_counts():
+    return [trace.counter(c) for c in (knl.OTF_FUSED, knl.OTF_TILES,
+                                       fp.LAUNCHES)]
+
+
+def _counted_since(before):
+    return [now - b for now, b in zip(_otf_counts(), before)]
+
+
+def test_otf_matvec_matches_the_cached_matvec(small):
+    """The on-the-fly matvec on the card, all 300 rows in one call of the
+    fused kernel (no tile loop), against the cached matvec at 1e-12."""
     ds, perms = make_benchmark_dataset("ethanol", n_samples=300, seed=11,
                                        n_train=300)
     spec = dsc.make_spec(9)
@@ -323,8 +334,28 @@ def test_otf_matvec_matches_the_cached_matvec(small, monkeypatch):
     otf = knl.build_cache(*args, pairwise=False)
     v = torch.as_tensor(np.random.default_rng(2).normal(size=cached.n),
                         device="cuda")
-    monkeypatch.setattr(knl, "_OTF_TILE", 128)
-    assert _rel_err(knl.matvec_psd(otf, v), knl.matvec_psd(cached, v)) <= 1e-12
+    before = _otf_counts()
+    got = knl.matvec_psd(otf, v)
+    assert _counted_since(before) == [1, 0, 1]
+    assert _rel_err(got, knl.matvec_psd(cached, v)) <= 1e-12
+
+
+def test_wide_otf_matvec_matches_the_plain_tile_loop(small):
+    """A molecule past the narrow route (21 atoms, D = 210, a random
+    geometry, N = 40, P = 1): the on-the-fly matvec on the card is one call
+    of the wide route, within 1e-12 of the plain tile loop on the CPU on the
+    same cache bits."""
+    _, _, cached = _random_caches(n_atoms=21, n_train=40)
+    otf_cpu = dataclasses.replace(cached, A_exp=None, A_exp1=None)
+    otf = _cache_on(otf_cpu, "cuda")
+    assert fp.geometry_for(otf.Xq.shape[1]) is fp.WIDE
+    v = np.random.default_rng(6).normal(size=otf.n)
+    before = _otf_counts()
+    got = knl.matvec_psd(otf, torch.as_tensor(v, device="cuda"))
+    assert _counted_since(before) == [1, 0, 1]
+    want = knl.matvec_psd(otf_cpu, torch.as_tensor(v))
+    assert _counted_since(before) == [1, 1, 1]
+    assert _rel_err(got.cpu(), want) <= 1e-12
 
 
 def test_square_matvec_matches_the_packed_matvec(small):
@@ -1138,3 +1169,44 @@ def test_one_rank_nccl_sharded_solve_is_not_graphed(nccl_mesh):
     assert _graph_counts()[0] == before[0] + 1
     assert got.converged and want.converged
     assert abs(got.num_iters - want.num_iters) <= 2
+
+
+def test_graphed_otf_solve_matches_the_plain_loop(card):
+    """A one-card PCG solve on an on-the-fly cache captures and replays the
+    fused kernel (its scratch is made in the eager warm-up, outside the
+    capture), and takes the iterations of the same solve through the plain
+    tile loop on the CPU, on the same cache and preconditioner bits, within
+    2; the solutions agree within 1e-10 relative.  lam = 1e-5 and 20
+    Nystrom columns give ~13 iterations of a system conditioned well enough
+    that rounding moves the solution ~1e-13 (a CPU run with 1e-15 relative
+    noise on every matvec entry: 3.4e-13); at lam = 1e-10 the same noise
+    moves it ~2e-9."""
+    from mlff_tpu_torch.solvers import cg
+    from mlff_tpu_torch.solvers import preconditioners as tpc
+
+    ds = make_dataset("ethanol", n_samples=30, seed=3)
+    spec = dsc.make_spec(9)
+    X, Jc = dsc.descriptors_from_R(spec, torch.as_tensor(ds["R"]))
+    otf_cpu = knl.build_cache(X, Jc, dsc.incidence_matrix(spec, device="cpu"),
+                              dsc.desc_perms(benchmark_perms("ethanol")),
+                              SIG, 1e-5, pairwise=False, device="cpu")
+    idxs = np.sort(np.random.default_rng(3).choice(otf_cpu.n, 20,
+                                                   replace=False))
+    P_cpu = tpc.nystrom_preconditioner(spec, otf_cpu, idxs, otf_cpu.lam)
+    otf = _cache_on(otf_cpu, "cuda")
+    P = dataclasses.replace(P_cpu, B=P_cpu.B.cuda(), W2=P_cpu.W2.cuda())
+    b = torch.as_tensor(np.asarray(ds["F"]).ravel())
+    b = b / torch.linalg.norm(b)
+    graph_before, before = _graph_counts(), _otf_counts()
+    got = cg.pcg(lambda u: knl.matvec_psd(otf, u), b.cuda(), precon=P,
+                 tol=1e-8)
+    captures, replayed = (a - c for a, c in zip(_graph_counts(),
+                                                graph_before))
+    fused, tiles, launches = _counted_since(before)
+    want = cg.pcg(lambda u: knl.matvec_psd(otf_cpu, u), b, precon=P_cpu,
+                  tol=1e-8)
+    assert got.converged and want.converged and want.num_iters > 5
+    assert (captures, replayed) == (1, got.num_iters - 1)
+    assert fused == launches > got.num_iters and tiles == 0
+    assert abs(got.num_iters - want.num_iters) <= 2
+    assert np.abs(got.x - want.x).max() <= 1e-10 * np.abs(want.x).max()

@@ -5,10 +5,12 @@ with ``pairwise=False`` and recompute the weights per row tile of the
 matvec.  Here the port's ``_otf_tile`` is held to the JAX rule on a grid of
 (N, M), its 128-row floor and its warning included; the OTF matvec to the
 JAX OTF matvec and to the port's cached one with the tile patched down to
-the floor (several tiles, a ragged last one); ``matmat_psd`` and the
-chunked Woodbury apply to their JAX counterparts; and a small training
-with the cache switch forced to OTF to the cached training and to the JAX
-package's OTF training.
+the floor (several tiles, a ragged last one); off the card, and for an f32
+copy, the plain tile loop and its counter (the card's f64 matvec goes
+through the fused kernel, ``tests/test_torch_cuda.py``); ``matmat_psd``
+and the chunked Woodbury apply to their JAX counterparts; and a small
+training with the cache switch forced to OTF to the cached training and to
+the JAX package's OTF training.
 
 Tolerances: the matvecs are f64 against f64 with the summation order as
 the only difference, 1e-12 relative to the largest entry; the chunked apply
@@ -37,8 +39,10 @@ from mlff_tpu_torch.convert import kernel_cache_from_numpy  # noqa: E402
 from mlff_tpu_torch.models.gdml import Trainer  # noqa: E402
 from mlff_tpu_torch.models.predict import Predictor  # noqa: E402
 from mlff_tpu_torch.ops import descriptor as td  # noqa: E402
+from mlff_tpu_torch.ops import fused_predict as fp  # noqa: E402
 from mlff_tpu_torch.ops import kernel as tk  # noqa: E402
 from mlff_tpu_torch.solvers import preconditioners as tpc  # noqa: E402
+from mlff_tpu_torch.utils import trace  # noqa: E402
 
 MATVEC_RTOL = 1e-12
 SIG, LAM = 10.0, 1e-10
@@ -121,6 +125,26 @@ def test_otf_matvec_matches_jax_and_the_cached_matvec(caches, monkeypatch,
     assert _rel(got, tk.matvec_psd(ct, torch.as_tensor(v))) <= MATVEC_RTOL
     assert _rel(got, jk.matvec_psd(cj_otf, jnp.asarray(v))) <= MATVEC_RTOL
     assert _rel(got, jk.matvec_psd(cj, jnp.asarray(v))) <= MATVEC_RTOL
+
+
+@pytest.mark.parametrize("tile,tiles", [(None, 1), (128, 3)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_otf_matvec_off_the_card_runs_the_tile_loop(caches, monkeypatch,
+                                                    dtype, tile, tiles):
+    """A CPU cache, and its f32 ``downcast_cache`` copy, keep the plain tile
+    loop: ``OTF_TILES`` counts the rule's tiles (one of all 300 rows, or
+    128, 128, 44), and the fused kernel's counters do not move."""
+    ct_otf = caches[3]
+    cache = ct_otf if dtype == torch.float64 else tk.downcast_cache(ct_otf)
+    if tile is not None:
+        monkeypatch.setattr(tk, "_OTF_TILE", tile)
+    counters = (tk.OTF_TILES, tk.OTF_FUSED, fp.LAUNCHES)
+    before = [trace.counter(c) for c in counters]
+    v = torch.as_tensor(np.random.default_rng(5).normal(size=ct_otf.n))
+    out = tk.matvec_psd(cache, v)
+    got = [trace.counter(c) - b for c, b in zip(counters, before)]
+    assert cache.Xq.dtype == dtype and out.dtype == torch.float64
+    assert got == [tiles, 0, 0]
 
 
 @pytest.mark.parametrize("kind", ["cached", "otf"])
