@@ -453,20 +453,16 @@ def f32_contraction_error(torch, pred, R) -> float:
 
     Xq, _ = pred._query_descriptors(
         torch.as_tensor(R, dtype=torch.float64, device=pred.device))
-    F64, _ = knl._desc_forces_x(
+    F64, _ = knl.desc_forces(
         pred.Xqt, pred.sig, Xq,
-        *weights(knl.pairwise_dist_gram(Xq, pred.Xqt), pred.sig), pred.wt)
-    a, a1 = weights(knl.pairwise_dist_gram(Xq, pred.Xqt).float(), pred.sig)
+        *knl.pair_weights(knl.pairwise_dist_gram(Xq, pred.Xqt), pred.sig),
+        pred.wt)
+    a, a1 = knl.pair_weights(knl.pairwise_dist_gram(Xq, pred.Xqt).float(),
+                             pred.sig)
     xq, xt, w = Xq.float(), pred.Xqt.float(), pred.wt.float()
     G = a * (xq @ w.T - torch.sum(xt * w, dim=1)[None, :])
     F32 = xq * torch.sum(G, dim=1, keepdim=True) - G @ xt - a1 @ w
     return float((F32.double() - F64).abs().max() / F64.abs().max())
-
-
-def weights(dist, sig):
-    """(a, a1) = 5/(3 sig^2) exp(-dist) and a (1 + dist)."""
-    a = (5.0 / (3.0 * sig**2)) * (-dist).exp()
-    return a, a * (1.0 + dist)
 
 
 def rel_err(got, want) -> float:
@@ -659,10 +655,15 @@ def train_otf(torch, dev, task, ds, held, cached_row, mae_ref) -> int:
     from mlff_tpu_torch.ops import kernel as knl
 
     tr = Trainer(device=dev)
-    tr._pairwise_fits = lambda n_train, n_perms: False
+    pairwise_fits = knl.pairwise_fits
+    knl.pairwise_fits = lambda n_train, n_perms: False
     trace.reset(fp.LAUNCHES)
     t0 = time.perf_counter()
-    m = tr.train(task, n_columns=K_COLUMNS, str_preconditioner="lev_random")
+    try:
+        m = tr.train(task, n_columns=K_COLUMNS,
+                     str_preconditioner="lev_random")
+    finally:
+        knl.pairwise_fits = pairwise_fits
     train_s = time.perf_counter() - t0
     info = tr.last_info
     _, F = Predictor(m, fast=True, device=dev).predict(ds["R"][held])
@@ -740,7 +741,7 @@ def large_system(torch, dev, phase, molecule, n_train, k, limit) -> tuple:
     row = dict(molecule=molecule, n=int(np.asarray(task["F_train"]).size),
                N_train=n_train, A=n_atoms, D=n_atoms * (n_atoms - 1) // 2,
                P=int(perms.shape[0]), k=len(m["inducing_pts_idxs"]),
-               pairwise=Trainer._pairwise_fits(n_train, perms.shape[0]),
+               pairwise=knl.pairwise_fits(n_train, perms.shape[0]),
                matvec_impl=info["matvec_impl"], converged=bool(m["is_conv"]),
                iters=iters, iters_limit=limit, train_s=train_s,
                cache_build_s=info["cache_build_s"],
@@ -809,7 +810,8 @@ def nanotube(torch, dev) -> int:
     tr = Trainer(device=dev)
     spec, S, X, Jc, P_idx = tr.build_kernel_inputs(task)
     cache = knl.build_cache(X, Jc, S, P_idx, SIG, 1e-10,
-                            R=Trainer._square_R(task, spec, P_idx),
+                            R=knl.square_R(task["R_train"], spec,
+                                           P_idx.shape[0]),
                             device=dev)
     fields = [f for f in ("Xsq", "Gsq", "Usq", "Zsq", "C1sq")
               if getattr(cache, f) is not None]

@@ -100,24 +100,6 @@ class Trainer:
         y_std = float(np.std(y))
         return y / y_std, y_std, E_train_mean
 
-    @staticmethod
-    def _pairwise_fits(n_train: int, n_perms: int) -> bool:
-        """Whether the two (N, M) f64 pairwise caches fit (<= 3 GB), the JAX
-        package's switch to its on-the-fly matvec (ops.kernel
-        ._matvec_ref_otf)."""
-        return 2 * n_train * n_train * n_perms * 8 <= int(3e9)
-
-    @staticmethod
-    def _square_R(task, spec, P_idx) -> np.ndarray | None:
-        """R_train for the kernel cache's square all-pairs fields: only for
-        single-perm molecules whose descriptor size trips the large-D paths
-        (the square layout assembles their columns ~(D/A)x faster)."""
-        P = int(P_idx.shape[0])
-        big = spec.dim * spec.dim_i * 8 * max(4, P) > knl._INFLATION_BUDGET
-        if big and P == 1:
-            return np.asarray(task["R_train"], dtype=np.float64)
-        return None
-
     # -- main entry --------------------------------------------------------
 
     def train(
@@ -194,8 +176,8 @@ class Trainer:
             with trace.timed("train.cache") as t_cache:
                 cache = knl.build_cache(
                     X, Jc, S, P_idx, float(task["sig"]), CG_LAM,
-                    R=self._square_R(task, spec, P_idx),
-                    pairwise=self._pairwise_fits(X.shape[0], P_idx.shape[0]),
+                    R=knl.square_R(task["R_train"], spec, P_idx.shape[0]),
+                    pairwise=knl.pairwise_fits(X.shape[0], P_idx.shape[0]),
                     device=self.device)
                 synchronize(self.device)
             cache_build_s = t_cache.seconds

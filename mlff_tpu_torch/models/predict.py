@@ -164,21 +164,16 @@ class Predictor:
         """(B, A, 3) -> energies (B,), forces (B, A, 3), f64."""
         Xq_query, Jc_query = self._query_descriptors(R_batch)
         with trace.span("predict.contract"):
-            q = knl.SQRT5 / self.sig
             dist = knl.pairwise_dist_gram(Xq_query, self.Xqt)
-            A_exp = (5.0 / (3.0 * self.sig**2)) * torch.exp(-dist)
-            A_exp1 = A_exp * (1.0 + dist)
-            F_desc, E = knl._desc_forces_x(self.Xqt, self.sig, Xq_query,
-                                           A_exp, A_exp1, self.wt)
+            A_exp, A_exp1 = knl.pair_weights(dist, self.sig)
+            F_desc, E = knl.desc_forces(self.Xqt, self.sig, Xq_query, A_exp,
+                                        A_exp1, self.wt)
             if self.vE_lin is not None:
-                # energy-coefficient contributions (reference
-                # predict.py:210-218)
-                H = A_exp1 * self.vE_lin[None, :]
-                F_desc = F_desc + (
-                    Xq_query * torch.sum(H, dim=1, keepdim=True)
-                    - H @ self.Xqt) / q
+                # the plain Matern-5/2 energy block of the query rows
                 K_ee = (1.0 + dist * (1.0 + dist / 3.0)) * torch.exp(-dist)
-                E = E + K_ee @ self.vE_lin
+                F_desc, E = knl.energy_coef_terms(
+                    Xq_query, self.Xqt, self.sig, A_exp1, self.vE_lin,
+                    F_desc, E, K_ee)
         return self._backproject(Jc_query, F_desc, E)
 
     def predict(self, R):

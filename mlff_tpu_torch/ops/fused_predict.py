@@ -51,7 +51,7 @@ import torch
 
 from ..utils import trace
 from . import cuda_build
-from .kernel import SQRT5, pairwise_dist_gram
+from .kernel import SQRT5, desc_forces, pair_weights, pairwise_dist_gram
 
 # the counter of ``utils.trace`` of the calls that launched the kernel
 LAUNCHES = "launches.fused_predict"
@@ -276,17 +276,12 @@ def _check(Xq_query: torch.Tensor, Xqt: torch.Tensor, wt: torch.Tensor):
 
 def desc_forces_fused_ref(Xq_query: torch.Tensor, Xqt: torch.Tensor,
                           wt: torch.Tensor, sig: float):
-    """Plain PyTorch version of the kernel, f64.  Returns
+    """Plain PyTorch version of the kernel, f64: the distances, the
+    ``pair_weights`` and the contraction ``desc_forces`` of
+    ``ops/kernel.py``, the f64 Predictor's steps.  Returns
     (F_desc (B, D), E (B,))."""
-    dist = pairwise_dist_gram(Xq_query, Xqt)
-    a = (5.0 / (3.0 * sig**2)) * torch.exp(-dist)
-    ct = torch.sum(Xqt * wt, dim=1)
-    dot = Xq_query @ wt.T - ct[None, :]
-    G = a * dot
-    a1 = a * (1.0 + dist)
-    F = Xq_query * torch.sum(G, dim=1, keepdim=True) - G @ Xqt - a1 @ wt
-    E = torch.sum(a1 * dot, dim=1) / (SQRT5 / sig)
-    return F, E
+    A_exp, A_exp1 = pair_weights(pairwise_dist_gram(Xq_query, Xqt), sig)
+    return desc_forces(Xqt, sig, Xq_query, A_exp, A_exp1, wt)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:

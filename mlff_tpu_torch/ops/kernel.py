@@ -12,16 +12,20 @@ kernel block between training points i, j is
 with d_p = x_i - x_j[P_p],  n_p = sqrt(5) ||d_p||,
 base_p = 5 exp(-n_p / sig) / (3 sig^4).
 
-The pairwise distance matrix, its exponential and the (1 + dist) weight are
-computed once per solve (``KernelCache``); each CG iteration is then three
-(N, M) x (M, D) f64 products (cuBLAS DGEMM on the card) plus elementwise
-work.  Above 3 GB of such caches the matvec recomputes them in every call
-instead (``build_cache(pairwise=False)``, ``_matvec_ref_otf``): on the card
-in one call of the fused contraction kernel (``ops/fused_predict.py``),
-which keeps the (N, M) weights out of device memory; on the CPU, and for
-an f32 copy, per row tile in plain PyTorch.  Dense
-assembly (``assemble_block``, ``assemble_full``), the kernel diagonal and
-single columns serve the pivoted-Cholesky, eigenvector and analytic solvers.
+The pairwise distance matrix, its exponential and the (1 + dist) weight
+(``pair_weights``) are computed once per solve (``KernelCache``); each CG
+iteration is then the contraction ``desc_forces``: three (N, M) x (M, D)
+f64 products (cuBLAS DGEMM on the card) plus elementwise work.  The
+Predictor's f64 route and the fused kernel's plain version take the same
+two steps.  Above 3 GB of such caches (``pairwise_fits``) the matvec
+recomputes them in every call instead (``build_cache(pairwise=False)``,
+``_matvec_ref_otf``): on the card in one call of the fused contraction
+kernel (``ops/fused_predict.py``), which keeps the (N, M) weights out of
+device memory; on the CPU, and for an f32 copy, per row tile in plain
+PyTorch (``_otf_row_tiles``, the tile loop of every on-the-fly matvec).
+Dense assembly (``assemble_block``, ``assemble_full``), the kernel diagonal
+and single columns serve the pivoted-Cholesky, eigenvector and analytic
+solvers.
 Large molecules take inflation-free routes: compressed columns and diagonal
 (``assemble_columns_compressed*``, ``kernel_diag_compressed``,
 ``kernel_column_compressed``) and the square all-pairs layout
@@ -152,9 +156,24 @@ def pairwise_dist_gram(Xq_a: torch.Tensor, Xq_b: torch.Tensor) -> torch.Tensor:
     """Pairwise distances ||a_i - b_j|| via the Gram trick (one matmul)."""
     na = torch.sum(Xq_a * Xq_a, dim=1)
     nb = torch.sum(Xq_b * Xq_b, dim=1)
-    g = Xq_a @ Xq_b.T
-    d2 = torch.clamp(na[:, None] + nb[None, :] - 2.0 * g, min=0.0)
-    return torch.sqrt(d2)
+    return _dist_from_gram(na, nb, Xq_a @ Xq_b.T)
+
+
+def _dist_from_gram(na: torch.Tensor, nb: torch.Tensor,
+                    g: torch.Tensor) -> torch.Tensor:
+    """(B, M) distances from squared row norms na (B,), nb (M,) and the Gram
+    matrix g (B, M) of the two sides, however g was formed."""
+    return torch.sqrt(torch.clamp(na[:, None] + nb[None, :] - 2.0 * g,
+                                  min=0.0))
+
+
+def pair_weights(dist: torch.Tensor, sig: float):
+    """(A_exp, A_exp1) = (5/(3 sig^2) exp(-dist), A_exp (1 + dist)): the two
+    Matern-5/2 weights of the descriptor-force contraction (``desc_forces``)
+    over q-scaled pairwise distances, at the dtype of ``dist``.  The
+    Hessian block's weights are ``_matern_weights``."""
+    A_exp = (5.0 / (3.0 * sig**2)) * torch.exp(-dist)
+    return A_exp, A_exp * (1.0 + dist)
 
 
 def _f64(x, device) -> torch.Tensor:
@@ -194,9 +213,7 @@ def build_cache(
     Xqt = permuted_descriptors(Xq, P_idx)
     A_exp = A_exp1 = None
     if pairwise:
-        dist = pairwise_dist_gram(Xq, Xqt)
-        A_exp = (5.0 / (3.0 * sig**2)) * torch.exp(-dist)
-        A_exp1 = A_exp * (1.0 + dist)
+        A_exp, A_exp1 = pair_weights(pairwise_dist_gram(Xq, Xqt), sig)
     square = {}
     if R is not None:
         square = _square_fields(_f64(R, dev).reshape(X.shape[0], -1, 3), sig)
@@ -237,10 +254,10 @@ def _square_fields(R: torch.Tensor, sig: float) -> dict:
     return out
 
 
-def _desc_forces_x(Xqt, sig, Xq_query, A_exp, A_exp1, wt,
-                   energies: bool = True):
+def desc_forces(Xqt, sig, Xq_query, A_exp, A_exp1, wt,
+                energies: bool = True):
     """Descriptor-space force contraction shared by matvec and prediction:
-    three (B, M)-shaped products around the cached exp weights.  Returns
+    three (B, M)-shaped products around the ``pair_weights``.  Returns
     (F_desc (B, D), E (B,)) in the reference predictor's sign convention,
     E None with ``energies=False`` (the matvecs: eager PyTorch would spend a
     (B, M) pass on energies that XLA drops as dead code).  The same math
@@ -263,6 +280,19 @@ def _desc_forces_x(Xqt, sig, Xq_query, A_exp, A_exp1, wt,
     return F1 - F2, E
 
 
+def energy_coef_terms(Xq_query, Xqt, sig, A_exp1, vE_lin, F_desc, E, K_ee):
+    """``desc_forces``' (F_desc, E) plus the terms of energy-constraint
+    coefficients ``vE_lin`` (M,) (reference predict.py:210-218): the forces
+    gain sum_m vE_m A_exp1[b, m] delta with delta unscaled by q, the
+    energies the plain Matern-5/2 block ``K_ee`` (B, M) applied to vE_lin.
+    The caller forms K_ee (from distances, or from a pairwise cache)."""
+    q = SQRT5 / sig
+    H = A_exp1 * vE_lin[None, :]                                 # (B, M)
+    F_desc = F_desc + (Xq_query * torch.sum(H, dim=1, keepdim=True)
+                       - H @ Xqt) / q
+    return F_desc, E + K_ee @ vE_lin
+
+
 def perm_expand_w(w: torch.Tensor, P_idx: torch.Tensor) -> torch.Tensor:
     """(N, D) -> (N*P, D) permuted copies of per-point descriptor cotangents."""
     return w[:, P_idx].reshape(-1, w.shape[1])
@@ -271,8 +301,9 @@ def perm_expand_w(w: torch.Tensor, P_idx: torch.Tensor) -> torch.Tensor:
 # row tile of the on-the-fly matvec: (tile, M) pairwise transients
 _OTF_TILE = 4096
 
-# counters (utils.trace): row tiles the on-the-fly matvec's plain loop has
-# run, and on-the-fly matvecs run through the fused kernel
+# counters (utils.trace): row tiles the on-the-fly matvecs' tile loop
+# (``_otf_row_tiles``) has run, and on-the-fly matvecs run through the
+# fused kernel
 OTF_TILES = "matvec.otf_tiles"
 OTF_FUSED = "matvec.otf_fused"
 
@@ -308,14 +339,12 @@ def _matvec_ref_otf(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
     route to D = 129, the wide one beyond; its energies are dropped), which
     forms distances and weights on its tiles: no (N, M) array reaches
     device memory.  Such calls are counted in ``OTF_FUSED``.  A CPU cache,
-    and an f32 ``downcast_cache`` copy, run the plain version: per row tile
-    one (tile, D) x (D, M) distance product, exp, and the three products of
-    ``_desc_forces_x``, the last tile a shorter slice; the tiles run are
-    counted in ``OTF_TILES``.  While ``utils.trace`` records, the kernel's
-    launches or the tile loop (not the all-gather of the cotangents before
-    them) are a span ``matvec.otf``.  A CUDA graph of the CG iteration
-    adds the capture's counts once per replay (``trace.counted``), so
-    replayed matvecs are counted too."""
+    and an f32 ``downcast_cache`` copy, run the plain version,
+    ``_desc_forces_otf_tiles``.  While ``utils.trace`` records, the
+    kernel's launches or the tile loop (not the all-gather of the
+    cotangents before them) are a span ``matvec.otf``.  A CUDA graph of
+    the CG iteration adds the capture's counts once per replay
+    (``trace.counted``), so replayed matvecs are counted too."""
     N = cache.n_train
     A = cache.S.shape[1]
     w = d_desc_dot_vec(cache.Jc, cache.S, v.reshape(N, A, 3))   # (N, D)
@@ -336,24 +365,37 @@ def _matvec_ref_otf(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
                           F_desc.to(cache.Jc.dtype)).reshape(-1)
 
 
-def _desc_forces_otf_tiles(cache: KernelCache,
-                           wt: torch.Tensor) -> torch.Tensor:
-    """The on-the-fly matvec's (N, D) descriptor forces in plain PyTorch,
-    per row tile of ``_otf_tile``."""
+def _otf_row_tiles(cache: KernelCache, tile_forces) -> torch.Tensor:
+    """The (N, D) descriptor forces of an on-the-fly matvec, row tile by
+    row tile of ``_otf_tile`` rows (the last a shorter slice):
+    ``tile_forces(Xq_t)`` gives the (tile, D) forces of the cache's rows
+    ``Xq_t``, from their own distances and weights.  While ``utils.trace``
+    records, the loop is a span ``matvec.otf``; the tiles run are counted
+    in ``OTF_TILES``.  The plain, the mixed and the Ozaki matvec share
+    it."""
     N = cache.n_train
-    c0 = 5.0 / (3.0 * cache.sig**2)
     F_desc = torch.empty_like(cache.Xq)
     tile = _otf_tile(N, cache.Xqt.shape[0])
     with trace.span("matvec.otf"):
         for start in range(0, N, tile):
-            Xq_t = cache.Xq[start:start + tile]                 # (tile, D)
-            dist = pairwise_dist_gram(Xq_t, cache.Xqt)          # (tile, M)
-            A_exp = c0 * torch.exp(-dist)
-            A_exp1 = A_exp * (1.0 + dist)
-            F_desc[start:start + tile], _ = _desc_forces_x(
-                cache.Xqt, cache.sig, Xq_t, A_exp, A_exp1, wt, energies=False)
+            F_desc[start:start + tile] = tile_forces(
+                cache.Xq[start:start + tile])
     trace.count(OTF_TILES, -(-N // tile))
     return F_desc
+
+
+def _desc_forces_otf_tiles(cache: KernelCache,
+                           wt: torch.Tensor) -> torch.Tensor:
+    """The on-the-fly matvec's (N, D) descriptor forces in plain PyTorch:
+    per row tile one (tile, D) x (D, M) distance product, the
+    ``pair_weights`` and the three products of ``desc_forces``."""
+    def tile_forces(Xq_t):
+        A_exp, A_exp1 = pair_weights(pairwise_dist_gram(Xq_t, cache.Xqt),
+                                     cache.sig)
+        return desc_forces(cache.Xqt, cache.sig, Xq_t, A_exp, A_exp1, wt,
+                           energies=False)[0]
+
+    return _otf_row_tiles(cache, tile_forces)
 
 
 def _at_cache_dtype(cache: KernelCache, w: torch.Tensor) -> torch.Tensor:
@@ -377,8 +419,8 @@ def matvec_ref(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
     w = d_desc_dot_vec(cache.Jc, cache.S, v.reshape(N, A, 3))   # (N, D)
     w = _all_points(cache, w)
     wt = perm_expand_w(_at_cache_dtype(cache, w), cache.P_idx)  # (M, D)
-    F_desc, _ = _desc_forces_x(cache.Xqt, cache.sig, cache.Xq, cache.A_exp,
-                               cache.A_exp1, wt, energies=False)
+    F_desc, _ = desc_forces(cache.Xqt, cache.sig, cache.Xq, cache.A_exp,
+                            cache.A_exp1, wt, energies=False)
     return vec_dot_d_desc(cache.Jc, cache.S,
                           F_desc.to(cache.Jc.dtype)).reshape(-1)
 
@@ -407,9 +449,8 @@ def matmat_psd(cache: KernelCache, V: torch.Tensor) -> torch.Tensor:
         w = d_desc_dot_vec(cache.Jc, cache.S, Vb.reshape(b, N, A, 3))
         w = _all_points(cache, w, dim=1)
         wt = w[:, :, cache.P_idx].reshape(b, M, D)              # (b, M, D)
-        F_desc, _ = _desc_forces_x(cache.Xqt, cache.sig, cache.Xq,
-                                   cache.A_exp, cache.A_exp1, wt,
-                                   energies=False)
+        F_desc, _ = desc_forces(cache.Xqt, cache.sig, cache.Xq,
+                                cache.A_exp, cache.A_exp1, wt, energies=False)
         Kv = vec_dot_d_desc(cache.Jc, cache.S, F_desc).reshape(b, -1)
         out[:, start:start + block] = (cache.lam * Vb - Kv).T
     return out
@@ -538,45 +579,33 @@ def _mixed_operands(cache: KernelCache, v: torch.Tensor):
 
 def matvec_ref_mixed(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
     """K_ref @ v with f32 products and ~sqrt(_MIXED_CHUNK) * 2^-24 relative
-    error, from the f64 cache (the splits are made per call)."""
-    ops = _mixed_operands(cache, v)
-    F_desc = _mixed_forces(cache.Xq, *ops, cache.A_exp, cache.A_exp1)
-    return vec_dot_d_desc(cache.Jc, cache.S, F_desc).reshape(-1)
-
-
-def _matvec_ref_mixed_otf(cache: KernelCache, v: torch.Tensor
-                          ) -> torch.Tensor:
-    """The mixed matvec on an on-the-fly cache: per row tile of
-    ``_otf_tile`` rows (the last a shorter slice) the distances come from
-    three split f32 products of the Gram trick (~1e-9 absolute in dist),
-    exp and the weights in f64, then ``_mixed_forces``."""
+    error, from the f64 cache (the splits are made per call).  An
+    on-the-fly cache forms its weights per row tile (``_otf_row_tiles``):
+    the distances from three split f32 products of the Gram trick (~1e-9
+    absolute in dist), exp and the weights in f64."""
     from .df64 import split_f64
 
-    N = cache.n_train
-    c0 = 5.0 / (3.0 * cache.sig**2)
     ops = _mixed_operands(cache, v)
+    if cache.A_exp is not None:
+        F_desc = _mixed_forces(cache.Xq, *ops, cache.A_exp, cache.A_exp1)
+        return vec_dot_d_desc(cache.Jc, cache.S, F_desc).reshape(-1)
     nb = torch.sum(cache.Xqt * cache.Xqt, dim=1)                # (M,)
     Xqth, Xqtl = split_f64(cache.Xqt)
-    F_desc = torch.empty_like(cache.Xq)
-    tile = _otf_tile(N, cache.Xqt.shape[0])
-    for start in range(0, N, tile):
-        Xq_t = cache.Xq[start:start + tile]                     # (tile, D)
+
+    def tile_forces(Xq_t):
         na = torch.sum(Xq_t * Xq_t, dim=1)
         Xh, Xl = split_f64(Xq_t)
         g = _f32_mm(Xh, Xqth.T) + _f32_mm(Xl, Xqth.T) + _f32_mm(Xh, Xqtl.T)
-        dist = torch.sqrt(torch.clamp(na[:, None] + nb[None, :] - 2.0 * g,
-                                      min=0.0))
-        A_exp = c0 * torch.exp(-dist)
-        F_desc[start:start + tile] = _mixed_forces(
-            Xq_t, *ops, A_exp, A_exp * (1.0 + dist))
+        A_exp, A_exp1 = pair_weights(_dist_from_gram(na, nb, g), cache.sig)
+        return _mixed_forces(Xq_t, *ops, A_exp, A_exp1)
+
+    F_desc = _otf_row_tiles(cache, tile_forces)
     return vec_dot_d_desc(cache.Jc, cache.S, F_desc).reshape(-1)
 
 
 def matvec_psd_mixed(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
     """(K + lam*I) @ v through the mixed matvec (cached pairwise weights when
     present, on-the-fly recomputation otherwise)."""
-    if cache.A_exp is None:
-        return cache.lam * v - _matvec_ref_mixed_otf(cache, v)
     return cache.lam * v - matvec_ref_mixed(cache, v)
 
 
@@ -643,11 +672,41 @@ def _ozaki_cotangents(cache: KernelCache, v: torch.Tensor):
 
 def matvec_ref_ozaki(state: OzakiMatvecState, v: torch.Tensor
                      ) -> torch.Tensor:
-    """K_ref @ v with exact-slice products (~2^-48 against matvec_ref)."""
+    """K_ref @ v with exact-slice products (~2^-48 against matvec_ref).  On
+    an on-the-fly cache, per row tile (``_otf_row_tiles``), the distance
+    Gram and the three force products all run as exact-slice products at
+    ``_OZ_DIGITS``; distances and weights are f64.  The tile keeps the
+    (segments, tile, D) f32 partials of the M-deep products and the
+    (tile, M) weights and digits within a few GB at n = 157k."""
     from . import ozaki
 
     cache = state.cache
     wt, ct = _ozaki_cotangents(cache, v)
+    if cache.A_exp is None:
+        s = _OZ_DIGITS
+        nq = torch.sum(cache.Xqt * cache.Xqt, dim=1)              # (M,)
+        wtT_sl = ozaki.slice_digits(wt.T, axis=0, s=s)            # product 1
+        wt_sl = ozaki.slice_digits(wt, axis=0, s=s)               # product 3
+
+        def tile_forces(Xq_t):
+            Xq_t_sl = ozaki.slice_digits(Xq_t, axis=1, s=s)
+            if _OZ_DIST64:
+                g = Xq_t @ cache.Xqt.T
+            else:
+                g = ozaki.gemm_presliced(Xq_t_sl, state.Xqt_sl_T)
+            dist = _dist_from_gram(torch.sum(Xq_t * Xq_t, dim=1), nq, g)
+            A_exp, A_exp1 = pair_weights(dist, cache.sig)
+            dot = ozaki.gemm_presliced(Xq_t_sl, wtT_sl) - ct[None, :]
+            G = A_exp * dot
+            F1 = Xq_t * torch.sum(G, dim=1, keepdim=True) \
+                - ozaki.gemm_presliced(ozaki.slice_digits(G, axis=1, s=s),
+                                       state.Xqt_sl)
+            F2 = ozaki.gemm_presliced(
+                ozaki.slice_digits(A_exp1, axis=1, s=s), wt_sl)
+            return F1 - F2
+
+        F_desc = _otf_row_tiles(cache, tile_forces)
+        return vec_dot_d_desc(cache.Jc, cache.S, F_desc).reshape(-1)
     # product 1: dot = Xq @ wt^T  (contraction D)
     dot = ozaki.gemm_presliced(
         state.Xq_sl, ozaki.slice_digits(wt.T, axis=0)) - ct[None, :]
@@ -660,53 +719,9 @@ def matvec_ref_ozaki(state: OzakiMatvecState, v: torch.Tensor
     return vec_dot_d_desc(cache.Jc, cache.S, F1 - F2).reshape(-1)
 
 
-def _matvec_ref_ozaki_otf(state: OzakiMatvecState, v: torch.Tensor
-                          ) -> torch.Tensor:
-    """The Ozaki matvec on an on-the-fly cache: per row tile of
-    ``_otf_tile`` rows (the last a shorter slice), the distance Gram and the
-    three force products all run as exact-slice products at
-    ``_OZ_DIGITS``; distances and weights are f64.  The tile keeps the
-    (segments, tile, D) f32 partials of the M-deep products and the
-    (tile, M) weights and digits within a few GB at n = 157k."""
-    from . import ozaki
-
-    cache = state.cache
-    N = cache.n_train
-    s = _OZ_DIGITS
-    c0 = 5.0 / (3.0 * cache.sig**2)
-    wt, ct = _ozaki_cotangents(cache, v)
-    nq = torch.sum(cache.Xqt * cache.Xqt, dim=1)              # (M,)
-    wtT_sl = ozaki.slice_digits(wt.T, axis=0, s=s)            # product 1
-    wt_sl = ozaki.slice_digits(wt, axis=0, s=s)               # product 3
-    F_desc = torch.empty_like(cache.Xq)
-    tile = _otf_tile(N, cache.Xqt.shape[0])
-    for start in range(0, N, tile):
-        Xq_t = cache.Xq[start:start + tile]                   # (tile, D)
-        Xq_t_sl = ozaki.slice_digits(Xq_t, axis=1, s=s)
-        if _OZ_DIST64:
-            g = Xq_t @ cache.Xqt.T
-        else:
-            g = ozaki.gemm_presliced(Xq_t_sl, state.Xqt_sl_T)
-        na = torch.sum(Xq_t * Xq_t, dim=1)
-        dist = torch.sqrt(torch.clamp(na[:, None] + nq[None, :] - 2.0 * g,
-                                      min=0.0))
-        A_exp = c0 * torch.exp(-dist)
-        A_exp1 = A_exp * (1.0 + dist)
-        dot = ozaki.gemm_presliced(Xq_t_sl, wtT_sl) - ct[None, :]
-        G = A_exp * dot
-        F1 = Xq_t * torch.sum(G, dim=1, keepdim=True) - ozaki.gemm_presliced(
-            ozaki.slice_digits(G, axis=1, s=s), state.Xqt_sl)
-        F2 = ozaki.gemm_presliced(ozaki.slice_digits(A_exp1, axis=1, s=s),
-                                  wt_sl)
-        F_desc[start:start + tile] = F1 - F2
-    return vec_dot_d_desc(cache.Jc, cache.S, F_desc).reshape(-1)
-
-
 def matvec_psd_ozaki(state: OzakiMatvecState, v: torch.Tensor
                      ) -> torch.Tensor:
     """(K + lam*I) @ v on the Ozaki sliced operator (cached or on the fly)."""
-    if state.cache.A_exp is None:
-        return state.cache.lam * v - _matvec_ref_ozaki_otf(state, v)
     return state.cache.lam * v - matvec_ref_ozaki(state, v)
 
 
@@ -777,11 +792,9 @@ def build_cache_square(R, perms, sig: float, lam: float,
     Xst = _perm_square(Xs, perms).reshape(N * P, A * A)
     Gst = _perm_square(Gs, perms).reshape(N * P, A, A, 3)
     Xs_flat = Xs.reshape(N, A * A)
-    dist = pairwise_dist_gram(Xs_flat, Xst)
-    A_exp = (5.0 / (3.0 * sig**2)) * torch.exp(-dist)
+    A_exp, A_exp1 = pair_weights(pairwise_dist_gram(Xs_flat, Xst), sig)
     return SquareCache(Gs=Gs, Gst=Gst, Xs=Xs_flat, Xst=Xst, perms=perms,
-                       A_exp=A_exp, A_exp1=A_exp * (1.0 + dist), sig=sig,
-                       lam=lam)
+                       A_exp=A_exp, A_exp1=A_exp1, sig=sig, lam=lam)
 
 
 def _perm_square(M_sq: torch.Tensor, perms: torch.Tensor) -> torch.Tensor:
@@ -811,8 +824,8 @@ def matvec_ref_square(sq: SquareCache, v: torch.Tensor) -> torch.Tensor:
         # of the (sharded) training side, which G @ Xst reads whole
         both = sq.shard.gather(torch.stack([wt, Xst], dim=1))
         wt, Xst = both[:, 0], both[:, 1]
-    F_desc, _ = _desc_forces_x(Xst, sq.sig, sq.Xs, sq.A_exp, sq.A_exp1, wt,
-                               energies=False)
+    F_desc, _ = desc_forces(Xst, sq.sig, sq.Xs, sq.A_exp, sq.A_exp1, wt,
+                            energies=False)
     Fsq = F_desc.reshape(N, A, A)
     return (2.0 * torch.sum(Fsq[..., None] * sq.Gs, dim=1)).reshape(-1)
 
@@ -910,9 +923,7 @@ def _assemble_columns_grouped(
         X_I = cache.X[start:stop]                         # (B, D)
         Jf_I = _inflate_full(cache.Jc[start:stop], cache.S)  # (B, D, T)
         delta = X_I[:, None, None, :] - X_g[None]         # (B, C, P, D)
-        nrm = SQRT5 * torch.linalg.norm(delta, dim=-1)    # (B, C, P)
-        base = (5.0 / (3.0 * sig**4)) * torch.exp(-nrm / sig)
-        c_iso = (sig**2 + sig * nrm) * base
+        base, c_iso = _matern_weights(delta, sig)         # (B, C, P)
         u = torch.einsum("bcpd,cgpd->bcgp", delta, jcol)  # (B, C, g, P)
         z = torch.einsum("bcgp,bcpd->bcgd", u * base[:, :, None, :], delta)
         W = torch.einsum("bcp,cgpd->bcgd", c_iso, jcol)
@@ -956,7 +967,7 @@ def assemble_columns(
     uniq = np.unique(points)
     dev = cache.device
     cc = _col_side(cache)
-    if _is_large_D(spec, cache):
+    if _is_large_D(spec, cache.n_perms):
         if cache.Xsq is not None and cache.n_perms == 1:
             return assemble_columns_square(spec, cache, col_idxs,
                                            col_cache=cc)
@@ -1249,10 +1260,29 @@ def assemble_columns_square(
 # ---------------------------------------------------------------------------
 
 
-def _is_large_D(spec: DescriptorSpec, cache: KernelCache) -> bool:
+def _is_large_D(spec: DescriptorSpec, n_perms: int) -> bool:
     """The JAX package's routing rule: above this Jacobian-inflation size it
     takes its compressed (inflation-free) paths."""
-    return spec.dim * spec.dim_i * 8 * max(4, cache.n_perms) > _INFLATION_BUDGET
+    return spec.dim * spec.dim_i * 8 * max(4, n_perms) > _INFLATION_BUDGET
+
+
+def pairwise_fits(n_train: int, n_perms: int) -> bool:
+    """Whether the two (N, M) f64 pairwise arrays fit (<= 3 GB): the JAX
+    package's rule for ``build_cache(pairwise=...)``, whose other answer is
+    the on-the-fly matvec (``_matvec_ref_otf``).  The Trainer judges it on
+    the global N, so a row-sharded training takes the route its unsharded
+    form would."""
+    return 2 * n_train * n_train * n_perms * 8 <= int(3e9)
+
+
+def square_R(R_train, spec: DescriptorSpec, n_perms: int):
+    """R_train as f64 for ``build_cache(R=...)``'s square all-pairs fields,
+    or None: only single-perm molecules whose descriptor size takes the
+    large-D paths (``_is_large_D``) get them, as their columns assemble
+    ~(D/A)x faster in the square layout."""
+    if n_perms == 1 and _is_large_D(spec, n_perms):
+        return np.asarray(R_train, dtype=np.float64)
+    return None
 
 
 def _matern_weights(delta: torch.Tensor, sig: float):
@@ -1414,7 +1444,7 @@ def kernel_diag_compressed(spec_dim_i: int,
 def kernel_diag_any(spec: DescriptorSpec, cache: KernelCache) -> torch.Tensor:
     """diag(K): the inflating path for small D, the compressed path for
     large D (the routing rule of ``assemble_columns``)."""
-    if _is_large_D(spec, cache):
+    if _is_large_D(spec, cache.n_perms):
         return kernel_diag_compressed(spec.dim_i, cache)
     return kernel_diag(spec.dim_i, cache)
 
@@ -1526,16 +1556,11 @@ def matvec_ref_ecstr(cache: KernelCache, v: torch.Tensor) -> torch.Tensor:
     wt = perm_expand_w(_at_cache_dtype(cache, w), cache.P_idx)    # (M, D)
     vE_lin = torch.repeat_interleave(v_E, cache.n_perms).to(wt.dtype)  # (M,)
     # e_out starts as sum_m A_exp1 dot / q (predict.py:207)
-    F_desc, e_out = _desc_forces_x(cache.Xqt, cache.sig, cache.Xq,
-                                   cache.A_exp, cache.A_exp1, wt)
-    # energy-coefficient contribution to forces: sum_m vE_m A_exp1[b, m]
-    # delta, delta unscaled by q (reference predict.py:210-213)
-    q = SQRT5 / cache.sig
-    H = cache.A_exp1 * vE_lin[None, :]                            # (N, M)
-    F_desc = F_desc + (cache.Xq * torch.sum(H, dim=1, keepdim=True)
-                       - H @ cache.Xqt) / q
+    F_desc, e_out = energy_coef_terms(
+        cache.Xq, cache.Xqt, cache.sig, cache.A_exp1, vE_lin,
+        *desc_forces(cache.Xqt, cache.sig, cache.Xq, cache.A_exp,
+                     cache.A_exp1, wt), K_ee)
     out_F = vec_dot_d_desc(cache.Jc, cache.S, F_desc.to(cache.Jc.dtype))
-    e_out = e_out + K_ee @ vE_lin                     # predict.py:214-218
     return torch.cat([out_F.reshape(-1), -e_out.to(out_F.dtype)])
 
 

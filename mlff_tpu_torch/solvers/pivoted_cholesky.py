@@ -232,8 +232,9 @@ def pivoted_cholesky(
         del K_fe, K_ee
     else:
         # large-D molecules: columns without Jacobian inflation
-        res = _pivoted_cholesky_device(spec.dim_i, cache, diag, max_rank,
-                                       compressed=knl._is_large_D(spec, cache))
+        res = _pivoted_cholesky_device(
+            spec.dim_i, cache, diag, max_rank,
+            compressed=knl._is_large_D(spec, cache.n_perms))
     # the first host read since the loop began; it also waits for the device
     min_pivot = float(res.pivot_values.min()) if max_rank > 0 else float("inf")
     elapsed = time.perf_counter() - t0

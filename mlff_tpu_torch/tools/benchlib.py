@@ -77,17 +77,17 @@ def benchmark_task(molecule: str, n_train: int, benchmark_data: bool = True,
 
 def rebuild_cache(trainer, task: dict) -> tuple[float, knl.KernelCache]:
     """(seconds, cache) of the kernel cache rebuilt from the task's inputs by
-    the Trainer's own rule (``_pairwise_fits``, ``_square_R``), timed from
-    ready inputs to a synchronized device: the cache build of a warm
-    process."""
+    the Trainer's own rule (``ops/kernel.py::pairwise_fits``, ``square_R``),
+    timed from ready inputs to a synchronized device: the cache build of a
+    warm process."""
     spec, S, X, Jc, P_idx = trainer.build_kernel_inputs(task)
     dev = trainer.device
     synchronize(dev)
     t0 = time.perf_counter()
     cache = knl.build_cache(
         X, Jc, S, P_idx, float(task["sig"]), CG_LAM,
-        R=trainer._square_R(task, spec, P_idx),
-        pairwise=trainer._pairwise_fits(X.shape[0], P_idx.shape[0]),
+        R=knl.square_R(task["R_train"], spec, P_idx.shape[0]),
+        pairwise=knl.pairwise_fits(X.shape[0], P_idx.shape[0]),
         device=dev)
     synchronize(dev)
     return time.perf_counter() - t0, cache

@@ -8,7 +8,7 @@ The port's counterpart of the root ``tools/profile_matvec.py``, on its
 system: easy synthetic ethanol (N_TRAIN = 583 samples of seed 7), the six
 permutations of the first three atoms (P = 6), sigma = 10, lam = 1e-10,
 n = 15,741.  The stages are those of the port's matvec
-(``ops/kernel.py::matvec_ref`` and ``_desc_forces_x``), in order:
+(``ops/kernel.py::matvec_ref`` and ``desc_forces``), in order:
 
     w       the Jacobian contraction d_desc_dot_vec       (N, D)
     gather  the permuted cotangents perm_expand_w         (M, D)

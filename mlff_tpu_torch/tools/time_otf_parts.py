@@ -26,12 +26,12 @@ f64 cache on the card takes the fused kernel instead), at the tile
 n = 503,982):
 
     otf_dist     pairwise_dist_gram of the tile against the (M, D) side
-    otf_weights  A_exp = c exp(-dist), A_exp1 = A_exp (1 + dist)
+    otf_weights  pair_weights: A_exp = c exp(-dist), A_exp1 = A_exp (1 + dist)
     otf_dot      Xq_t wt^T - ct
     otf_G        A_exp * dot
     otf_F1       Xq_t rowsum(G) - G Xqt
     otf_F2       A_exp1 wt
-    otf_tile     the whole tile: dist, weights and _desc_forces_x
+    otf_tile     the whole tile: dist, weights and desc_forces
 
 Each piece in turns (``time_in_turns``, ``--reps`` rounds of one call):
 ms and GB/s of one (tile, M) f64 array.  The last line, ``otf_matvec``:
@@ -116,27 +116,19 @@ def otf_pieces(tile: int, M: int, D: int, dev, sig: float = 10.0) -> dict:
     Xq_t = q * _randn(g, tile, D, dev=dev)
     Xqt = q * _randn(g, M, D, dev=dev)
     wt = _randn(g, M, D, dev=dev)
-    c0 = 5.0 / (3.0 * sig**2)
     dist = knl.pairwise_dist_gram(Xq_t, Xqt)
-    A_exp = c0 * torch.exp(-dist)
-    A_exp1 = A_exp * (1.0 + dist)
+    A_exp, A_exp1 = knl.pair_weights(dist, sig)
     ct = torch.sum(Xqt * wt, dim=-1)
     dot = Xq_t @ wt.T - ct[None, :]
     G = A_exp * dot
 
-    def weights():
-        a = c0 * torch.exp(-dist)
-        return a, a * (1.0 + dist)
-
     def whole():
-        d = knl.pairwise_dist_gram(Xq_t, Xqt)
-        a = c0 * torch.exp(-d)
-        return knl._desc_forces_x(Xqt, sig, Xq_t, a, a * (1.0 + d), wt,
-                                  energies=False)[0]
+        a, a1 = knl.pair_weights(knl.pairwise_dist_gram(Xq_t, Xqt), sig)
+        return knl.desc_forces(Xqt, sig, Xq_t, a, a1, wt, energies=False)[0]
 
     return {
         "otf_dist": (lambda: knl.pairwise_dist_gram(Xq_t, Xqt), tile),
-        "otf_weights": (weights, tile),
+        "otf_weights": (lambda: knl.pair_weights(dist, sig), tile),
         "otf_dot": (lambda: Xq_t @ wt.T - torch.sum(Xqt * wt, dim=-1)[None],
                     tile),
         "otf_G": (lambda: A_exp * dot, tile),

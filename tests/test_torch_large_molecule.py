@@ -308,7 +308,7 @@ def test_cg_with_nystrom_on_large_descriptor(catcher):
 def nanotube():
     """AIMS-nanotube-sized (A = 370 => D = 68,265), N = 3: n = 3330."""
     spec, cj, ct = _caches(_random_R(370, 3, 7, scale=6.0))
-    assert tk._is_large_D(spec, ct)
+    assert tk._is_large_D(spec, ct.n_perms)
     return spec, cj, ct
 
 

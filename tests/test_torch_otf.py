@@ -8,9 +8,11 @@ JAX OTF matvec and to the port's cached one with the tile patched down to
 the floor (several tiles, a ragged last one); off the card, and for an f32
 copy, the plain tile loop and its counter (the card's f64 matvec goes
 through the fused kernel, ``tests/test_torch_cuda.py``); ``matmat_psd``
-and the chunked Woodbury apply to their JAX counterparts; and a small
+and the chunked Woodbury apply to their JAX counterparts; a small
 training with the cache switch forced to OTF to the cached training and to
-the JAX package's OTF training.
+the JAX package's OTF training; and the routes to the one contraction
+(``ops/kernel.py::pair_weights`` and ``desc_forces``) to each other, bit
+for bit.
 
 Tolerances: the matvecs are f64 against f64 with the summation order as
 the only difference, 1e-12 relative to the largest entry; the chunked apply
@@ -196,8 +198,8 @@ def trainings():
     mp = pytest.MonkeyPatch()
     try:
         m_cached = Trainer(device="cpu").train(task, **kw)
+        mp.setattr(tk, "pairwise_fits", lambda n_train, n_perms: False)
         off = staticmethod(lambda n_train, n_perms: False)
-        mp.setattr(Trainer, "_pairwise_fits", off)
         mp.setattr(JaxTrainer, "_pairwise_fits", off)
         m_otf = Trainer(device="cpu").train(task, **kw)
         m_jax_otf = JaxTrainer().train(task, **kw)
@@ -221,3 +223,62 @@ def test_otf_training_takes_the_same_iterations(trainings, other):
     _, F_otf = Predictor(m_otf, device="cpu").predict(R_held)
     _, F = Predictor(m, device="cpu").predict(R_held)
     assert np.abs(F_otf - F).max() <= 1e-4 * np.abs(F).max()
+
+
+def _ecstr_matvec_written_out(cache, v):
+    """The energy-constrained matvec composed step by step from the cache's
+    fields: the descriptor-force contraction, then the energy-coefficient
+    force and energy terms (reference predict.py:207-218)."""
+    N, A, P = cache.n_train, cache.S.shape[1], cache.n_perms
+    q = tk.SQRT5 / cache.sig
+    v_F, v_E = v[:N * A * 3], v[N * A * 3:]
+    dist = cache.A_exp1 / cache.A_exp - 1.0
+    K_ee = (1.0 + dist * (1.0 + dist / 3.0)) * (
+        cache.A_exp * (3.0 * cache.sig**2 / 5.0))
+    w = td.d_desc_dot_vec(cache.Jc, cache.S, v_F.reshape(N, A, 3))
+    wt = tk.perm_expand_w(w, cache.P_idx)
+    vE_lin = torch.repeat_interleave(v_E, P)
+    dot = cache.Xq @ wt.T - torch.sum(cache.Xqt * wt, dim=-1)[None, :]
+    G = cache.A_exp * dot
+    F = (cache.Xq * torch.sum(G, dim=-1, keepdim=True) - G @ cache.Xqt
+         - cache.A_exp1 @ wt)
+    e_out = torch.sum(cache.A_exp1 * dot, dim=-1) / q
+    H = cache.A_exp1 * vE_lin[None, :]
+    F = F + (cache.Xq * torch.sum(H, dim=1, keepdim=True) - H @ cache.Xqt) / q
+    out_F = td.vec_dot_d_desc(cache.Jc, cache.S, F)
+    e_out = e_out + K_ee @ vE_lin
+    return torch.cat([out_F.reshape(-1), -e_out])
+
+
+@pytest.mark.parametrize("case", ["otf_one_tile", "fused_ref_is_predictor",
+                                  "ecstr_energy_terms"])
+def test_one_contraction_gives_the_same_bits(caches, trainings, case):
+    """The three routes to the one Matern contraction agree bit for bit on
+    the CPU: (otf_one_tile) the plain on-the-fly matvec, its one tile
+    covering every row, against the cached ``matvec_ref`` built from the
+    same inputs; (fused_ref_is_predictor) ``Predictor(fast=True)``, whose
+    CPU route is ``desc_forces_fused_ref``, against the f64 Predictor;
+    (ecstr_energy_terms) ``matvec_ref_ecstr`` against the contraction and
+    its energy-coefficient terms written out step by step."""
+    ct_otf = caches[3]
+    cached = tk.build_cache(ct_otf.X, ct_otf.Jc, ct_otf.S, ct_otf.P_idx, SIG,
+                            LAM, device="cpu")
+    if case == "otf_one_tile":
+        assert tk._otf_tile(N_OTF, ct_otf.Xqt.shape[0]) == N_OTF
+        before = trace.counter(tk.OTF_TILES)
+        v = torch.as_tensor(np.random.default_rng(3).normal(size=cached.n))
+        got = tk.matvec_ref(ct_otf, v)
+        assert trace.counter(tk.OTF_TILES) - before == 1
+        assert torch.equal(got, tk.matvec_ref(cached, v))
+    elif case == "fused_ref_is_predictor":
+        m_cached, _, _, R_held = trainings
+        E, F = Predictor(m_cached, device="cpu").predict(R_held)
+        E_fast, F_fast = Predictor(m_cached, fast=True,
+                                   device="cpu").predict(R_held)
+        np.testing.assert_array_equal(F_fast, F)
+        np.testing.assert_array_equal(E_fast, E)
+    else:
+        v = torch.as_tensor(np.random.default_rng(6).normal(
+            size=cached.n + cached.n_train))
+        got = tk.matvec_ref_ecstr(cached, v)
+        assert torch.equal(got, _ecstr_matvec_written_out(cached, v))

@@ -142,7 +142,7 @@ def test_large_D_diagonal_routes_to_the_compressed_path(monkeypatch, dim,
     package's rule (the diagonals themselves: tests/test_torch_large_molecule.py)."""
     spec = types.SimpleNamespace(dim=dim, dim_i=dim_i)
     cache = types.SimpleNamespace(n_perms=1)
-    assert tk._is_large_D(spec, cache) == (
+    assert tk._is_large_D(spec, cache.n_perms) == (
         dim * dim_i * 8 * 4 > jk._INFLATION_BUDGET)
     called = []
     for name in ("kernel_diag_compressed", "kernel_diag"):

@@ -420,17 +420,18 @@ def otf_matvec(mesh, R, perms, v, sig=10.0, lam=1e-10):
 
 
 def train_otf(mesh, task, **kw):
-    """``train``, recorded, with the Trainer's rule sending every cache to
-    the on-the-fly matvec: the model's arrays (``R_desc`` too), the
-    ``matvec.otf`` spans and tiles of the training, its ``precon.apply``
-    spans with the collectives opened inside them, and the host-LAPACK
-    factors of its Nystrom builds that this rank computed."""
+    """``train``, recorded, with the cache-layout rule
+    (``ops/kernel.py::pairwise_fits``) sending every cache to the on-the-fly
+    matvec: the model's arrays (``R_desc`` too), the ``matvec.otf`` spans
+    and tiles of the training, its ``precon.apply`` spans with the
+    collectives opened inside them, and the host-LAPACK factors of its
+    Nystrom builds that this rank computed."""
     from mlff_tpu_torch.models.gdml import Trainer
     from mlff_tpu_torch.ops import kernel as tk
     from mlff_tpu_torch.solvers import preconditioners as tpc
     from mlff_tpu_torch.utils import trace
 
-    real = Trainer._pairwise_fits
+    real = tk.pairwise_fits
     host_fns = {f: getattr(tpc, f) for f in ("_host_whiten_factor",
                                              "_host_inner_isqrt")}
     factored = []
@@ -441,14 +442,14 @@ def train_otf(mesh, task, **kw):
             return host_fns[f](*a, **k)
         return fn
 
-    Trainer._pairwise_fits = staticmethod(lambda n_train, n_perms: False)
+    tk.pairwise_fits = lambda n_train, n_perms: False
     for f in host_fns:
         setattr(tpc, f, counted(f))
     try:
         with trace.recording() as rec:
             m = Trainer(device="cpu").train(dict(task), mesh=mesh, **kw)
     finally:
-        Trainer._pairwise_fits = real
+        tk.pairwise_fits = real
         for f, fn in host_fns.items():
             setattr(tpc, f, fn)
     out = {k: np.asarray(m[k]) for k in ("alphas_F", "R_desc",
