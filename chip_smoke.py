@@ -150,7 +150,10 @@ Phases, each printing one JSON line of its own numbers:
                  quiet, collectives per CG iteration and, for (a) and (b),
                  a second, recorded run: the host's milliseconds per
                  iteration issuing the collectives (the ``mesh.collective``
-                 spans, which synchronize nothing); the phase's seconds
+                 spans, which synchronize nothing; on the NCCL group of
+                 (a) the CG loop is a CUDA graph whose replays open none,
+                 so only the eager collectives are timed); the phase's
+                 seconds
   bench          the measurement tools at their published sizes: (a)
                  ``python3 -m mlff_tpu_torch.tools.bench`` in a fresh process
                  (its first-use costs real), converged, iterations within 2

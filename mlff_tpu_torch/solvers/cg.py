@@ -19,12 +19,17 @@ so every rank takes the same steps and stops at the same iteration, and the
 iterate handed to the checkpoint callback and returned is gathered whole on
 every rank.
 
-On one card (``b`` on CUDA, no ``layout``) a chunk's iterations are not
-queued op by op from Python: the solve's first iteration runs eagerly as
-the warm-up, one iteration is then captured as a CUDA graph over fixed
-state buffers, and every later iteration of the solve replays it (the host
-queues one graph launch instead of ~57 kernels).  The graph is released when
-the solve returns.  Everywhere else the same iteration runs eagerly.
+On the card (``b`` on CUDA, with no ``layout`` or a layout over an NCCL
+group) a chunk's iterations are not queued op by op from Python: the
+solve's first iteration runs eagerly as the warm-up, one iteration is then
+captured as a CUDA graph over fixed state buffers, and every later
+iteration of the solve replays it (the host queues one graph launch instead
+of ~57 kernels).  On a row-sharded operator the graph holds the iteration's
+NCCL collectives too; every rank captures at the same step and replays as
+often, since the host loop decides from all-reduced values.  The graph is
+released when the solve returns, before the group can be torn down.  On
+the CPU, and over a gloo group (which stages each collective through host
+memory), the same iteration runs eagerly.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ from ..utils import trace
 CG_STEPS_HIST_LEN = 100
 
 # counters (utils.trace): iterations run by replaying the captured
-# iteration, and captures (one per solve on one card)
+# iteration, and captures (one per graphed solve, on every rank)
 GRAPH_ITERS = "cg.graph_iters"
 GRAPH_CAPTURES = "cg.graph_captures"
 
@@ -90,10 +95,11 @@ def _norm(layout, r: torch.Tensor) -> torch.Tensor:
 
 
 def _graphed(b: torch.Tensor, layout) -> bool:
-    """Whether the iteration is captured and replayed: on one card, the
-    vectors on CUDA and no row layout (a sharded operator's collectives
-    stage through the host under gloo)."""
-    return b.is_cuda and layout is None
+    """Whether the iteration is captured and replayed: the vectors on CUDA,
+    and no row layout or one whose group is NCCL, which leaves the
+    collectives' tensors on the card (gloo stages them through the
+    host)."""
+    return b.is_cuda and (layout is None or layout.shard.backend == "nccl")
 
 
 def _whole(layout, x: torch.Tensor) -> np.ndarray:
@@ -158,21 +164,26 @@ class PCGSolver:
         s.done |= s.resid <= s.threshold
 
     def _replay(self, loop: _Loop, steps: int) -> None:
-        """``steps`` iterations on one card: the solve's first iteration
+        """``steps`` iterations on the card: the solve's first iteration
         eagerly (the warm-up, on the capture stream, so that its first-use
-        allocations are made outside the capture), then one iteration
-        captured as a CUDA graph, replayed for this and every later
-        iteration.  The capture records without running: the counters it
-        moved are taken back out, and added again per replay."""
+        allocations and the collectives' setup are made outside the
+        capture), then one iteration captured as a CUDA graph, replayed for
+        this and every later iteration.  The capture records without
+        running: the counters it moved are taken back out, and added again
+        per replay, and the spans it opened are not kept.  It holds only
+        this thread's calls to account (``thread_local``): NCCL's watchdog
+        thread queries its events meanwhile."""
         self.eager_steps = 0
         if steps and self._graph is None:
             stream, anchor = _capture_target(loop.r.device)
             stream.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(stream):
                 self._step(loop)
-                with trace.span("cg.capture"), trace.counted() as counts:
+                with trace.span("cg.capture"), trace.counted() as counts, \
+                        trace.unrecorded():
                     graph = torch.cuda.CUDAGraph()
-                    graph.capture_begin(pool=anchor.pool())
+                    graph.capture_begin(pool=anchor.pool(),
+                                        capture_error_mode="thread_local")
                     try:
                         self._step(loop)
                     finally:
@@ -312,7 +323,7 @@ def _pcg_drive(
     in host memory (its seconds are ``time_s``; attribute ``iters``), and
     per chunk ``cg.chunk``, the host queueing it (attributes ``steps``
     queued and ``iters`` run), and ``cg.read``, its one transfer; in the
-    first chunk of a solve on one card, ``cg.capture``.  Counter
+    first chunk of a graphed solve, ``cg.capture``.  Counter
     ``cg.graph_iters``: the iterations that ran by replay.
     """
     matvec, chunk, layout = solver.matvec, solver.chunk, solver.layout

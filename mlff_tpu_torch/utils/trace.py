@@ -29,7 +29,8 @@ Recording follows the thread that opened it; spans that other threads open
 meanwhile are not kept.  Counters (``count``) add to ``COUNTERS`` at all
 times, and a recording snapshots them when it opens and when it closes;
 ``counted`` and ``add`` carry a CUDA graph's counts from its capture to its
-replays.
+replays, and ``unrecorded`` keeps the spans of its capture out of the
+recording.
 """
 
 from __future__ import annotations
@@ -81,6 +82,21 @@ def add(counts: dict, times: int = 1) -> None:
     """Add ``times`` times each of ``counts`` ({name: n}) to its counter."""
     for name, n in counts.items():
         count(name, n * times)
+
+
+@contextlib.contextmanager
+def unrecorded():
+    """Keep none of the spans that close inside the block.  A CUDA graph's
+    capture opens the spans of the calls it records but runs none of them,
+    and its replays open none: the recording keeps the spans of the calls
+    that ran."""
+    rec = _active()
+    kept = None if rec is None else len(rec.spans)
+    try:
+        yield
+    finally:
+        if rec is not None:
+            del rec.spans[kept:]
 
 
 def _sync(device) -> None:

@@ -10,8 +10,10 @@ which hands the next chunk a residual that is not the solver's buffer.
 
 On one card the step is captured as a CUDA graph and replayed; the counters
 the capture moved are carried to the replays (``utils.trace.counted`` and
-``add``), which is checked here exactly.  The CPU and a row-sharded
-operator keep the eager step and never capture; the card tests in
+``add``), and the spans it opened are not kept (``utils.trace.unrecorded``),
+which is checked here exactly.  The CPU and a row-sharded operator over
+gloo keep the eager step and never capture; a row-sharded operator over
+NCCL is graphed like one card.  The card tests in
 ``tests/test_torch_cuda.py`` hold the replayed step to the eager one.
 """
 
@@ -191,6 +193,27 @@ def test_counted_changes_are_added_back_exactly(times):
     trace.reset("t.a", "t.b", "t.c")
 
 
+def test_unrecorded_keeps_no_span_that_closes_inside_it():
+    """The spans that close inside ``unrecorded`` leave the recording; the
+    span open around it, and those before and after, stay; off the
+    recording it does nothing."""
+    with trace.unrecorded():
+        with trace.span("t.off"):
+            pass
+    with trace.recording() as rec:
+        with trace.span("t.before"):
+            pass
+        with trace.span("t.capture"), trace.unrecorded():
+            with trace.span("t.call"):
+                with trace.span("t.collective"):
+                    pass
+        with trace.span("t.after"):
+            pass
+    assert [s.name for s in rec.spans] == ["t.before", "t.capture",
+                                           "t.after"]
+    assert rec.spans[2].parent is None
+
+
 def _graph_counts():
     return trace.counter(cg.GRAPH_CAPTURES), trace.counter(cg.GRAPH_ITERS)
 
@@ -226,11 +249,18 @@ def test_sharded_solve_never_captures(system, tmp_path):
     np.testing.assert_allclose(got.x, want.x, rtol=1e-12, atol=1e-14)
 
 
-def test_only_an_unsharded_card_solve_is_graphed():
+# (vectors on CUDA, the layout's group backend or None for no layout,
+# graphed)
+RULE = {"card": (True, None, True), "card_nccl": (True, "nccl", True),
+        "card_gloo": (True, "gloo", False), "host": (False, None, False)}
+
+
+@pytest.mark.parametrize("case", sorted(RULE))
+def test_a_card_solve_is_graphed_unless_gloo_stages_it(case):
     """The rule reads the input alone: a CUDA right-hand side with no row
-    layout."""
-    card, host = SimpleNamespace(is_cuda=True), SimpleNamespace(
-        is_cuda=False)
-    assert cg._graphed(card, None)
-    assert not cg._graphed(card, object())
-    assert not cg._graphed(host, None)
+    layout, or with one over an NCCL group; a gloo group, which stages
+    every collective through the host, and the CPU stay eager."""
+    is_cuda, backend, graphed = RULE[case]
+    layout = (None if backend is None else
+              SimpleNamespace(shard=SimpleNamespace(backend=backend)))
+    assert cg._graphed(SimpleNamespace(is_cuda=is_cuda), layout) is graphed

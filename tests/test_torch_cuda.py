@@ -38,8 +38,12 @@ card are held to the port's CPU result on the same bits within 1e-15 of
 the norm (the digit products are exact; the f64 parts round in another
 order).  The row-sharded operator runs on a one-rank NCCL group in this
 process: its matvec equals the unsharded one to 1e-12 and its Nystrom
-apply (f64 and df64) to 1e-10; a gloo group stages CUDA tensors through
-host memory and gives them back on the card.  The profiler reader
+apply (f64 and df64) to 1e-10; its PCG solve, graphed with its
+collectives, gives the eager solve's iterate bit for bit on the pairwise
+(f64 and df64 apply), on-the-fly and square operators, and two or four NCCL
+ranks take the one-card solve's iterations within 2 and its solution within
+1e-10; a gloo group stages CUDA tensors through host memory and gives them
+back on the card.  The profiler reader
 (``utils/timing.py::device_profile``) reads a device spin as busy (share
 >= 0.9), a host sleep between two launches as idle (>= 0.5), names both
 df64 kernels once per apply, and raises when the profiler records no
@@ -1143,32 +1147,28 @@ def test_graphed_solve_memory_holds_over_trainings(card, monkeypatch):
         assert reserved <= runs[0][2] + GRAPH_SLACK_BYTES
 
 
-def test_one_rank_nccl_sharded_solve_is_not_graphed(nccl_mesh):
-    """A row-sharded solve on the card (one NCCL rank) keeps the eager
-    step, captures nothing, and takes the unsharded graphed solve's
-    iterations."""
-    from mlff_tpu_torch.parallel import mesh as pmesh
-    from mlff_tpu_torch.solvers import cg
+def _otf_system():
+    """(CPU on-the-fly cache, its Nystrom preconditioner, b; the same cache
+    and preconditioner bits on the card): ethanol at lam = 1e-5 with 20
+    Nystrom columns, b the normalized forces."""
     from mlff_tpu_torch.solvers import preconditioners as tpc
 
-    spec, c_gpu, _ = _random_caches()
-    sh = pmesh.shard_cache(c_gpu, nccl_mesh)
-    idxs = np.sort(np.random.default_rng(3).choice(c_gpu.n, 40,
-                                                   replace=False))
-    v = torch.as_tensor(np.random.default_rng(4).normal(size=c_gpu.n),
-                        device="cuda")
-    P_sh = tpc.nystrom_preconditioner(spec, sh, idxs, 1e-10)
-    layout = knl.vector_layout(sh)
-    before = _graph_counts()
-    got = cg.pcg(lambda u: knl.matvec_psd(sh, u),
-                 pmesh.shard_vector(v, nccl_mesh), precon=P_sh,
-                 layout=layout, tol=1e-4)
-    assert _graph_counts() == before
-    P = tpc.nystrom_preconditioner(spec, c_gpu, idxs, 1e-10)
-    want = cg.pcg(lambda u: knl.matvec_psd(c_gpu, u), v, precon=P, tol=1e-4)
-    assert _graph_counts()[0] == before[0] + 1
-    assert got.converged and want.converged
-    assert abs(got.num_iters - want.num_iters) <= 2
+    ds = make_dataset("ethanol", n_samples=30, seed=3)
+    spec = dsc.make_spec(9)
+    X, Jc = dsc.descriptors_from_R(spec, torch.as_tensor(ds["R"]))
+    otf_cpu = knl.build_cache(X, Jc, dsc.incidence_matrix(spec, device="cpu"),
+                              dsc.desc_perms(benchmark_perms("ethanol")),
+                              SIG, 1e-5, pairwise=False, device="cpu")
+    P_cpu = tpc.nystrom_preconditioner(spec, otf_cpu, _otf_columns(otf_cpu.n),
+                                       otf_cpu.lam)
+    P = dataclasses.replace(P_cpu, B=P_cpu.B.cuda(), W2=P_cpu.W2.cuda())
+    b = torch.as_tensor(np.asarray(ds["F"]).ravel())
+    return otf_cpu, P_cpu, b / torch.linalg.norm(b), _cache_on(otf_cpu,
+                                                               "cuda"), P
+
+
+def _otf_columns(n):
+    return np.sort(np.random.default_rng(3).choice(n, 20, replace=False))
 
 
 def test_graphed_otf_solve_matches_the_plain_loop(card):
@@ -1182,21 +1182,8 @@ def test_graphed_otf_solve_matches_the_plain_loop(card):
     noise on every matvec entry: 3.4e-13); at lam = 1e-10 the same noise
     moves it ~2e-9."""
     from mlff_tpu_torch.solvers import cg
-    from mlff_tpu_torch.solvers import preconditioners as tpc
 
-    ds = make_dataset("ethanol", n_samples=30, seed=3)
-    spec = dsc.make_spec(9)
-    X, Jc = dsc.descriptors_from_R(spec, torch.as_tensor(ds["R"]))
-    otf_cpu = knl.build_cache(X, Jc, dsc.incidence_matrix(spec, device="cpu"),
-                              dsc.desc_perms(benchmark_perms("ethanol")),
-                              SIG, 1e-5, pairwise=False, device="cpu")
-    idxs = np.sort(np.random.default_rng(3).choice(otf_cpu.n, 20,
-                                                   replace=False))
-    P_cpu = tpc.nystrom_preconditioner(spec, otf_cpu, idxs, otf_cpu.lam)
-    otf = _cache_on(otf_cpu, "cuda")
-    P = dataclasses.replace(P_cpu, B=P_cpu.B.cuda(), W2=P_cpu.W2.cuda())
-    b = torch.as_tensor(np.asarray(ds["F"]).ravel())
-    b = b / torch.linalg.norm(b)
+    otf_cpu, P_cpu, b, otf, P = _otf_system()
     graph_before, before = _graph_counts(), _otf_counts()
     got = cg.pcg(lambda u: knl.matvec_psd(otf, u), b.cuda(), precon=P,
                  tol=1e-8)
@@ -1210,3 +1197,159 @@ def test_graphed_otf_solve_matches_the_plain_loop(card):
     assert fused == launches > got.num_iters and tiles == 0
     assert abs(got.num_iters - want.num_iters) <= 2
     assert np.abs(got.x - want.x).max() <= 1e-10 * np.abs(want.x).max()
+
+
+# the row-sharded systems a sharded training solves: the pairwise cache
+# with the f64 and the df64 apply, the on-the-fly cache, the square layout
+SHARDED_SYSTEMS = ("cached", "df64", "otf", "square")
+
+
+def _sharded_system(system, mesh):
+    """``system`` on the card and on the one-rank ``mesh``: ((sharded
+    matvec, b, preconditioner, layout), (unsharded matvec, b,
+    preconditioner), tol).  The random pairwise cache with a 40-column
+    Nystrom preconditioner built on it (lam = 1e-10; f64 or df64 apply), the
+    on-the-fly system of ``_otf_system``, or the catcher's square layout with
+    a 200-column preconditioner built on its packed cache (lam = 1e-10), as
+    ``solvers/iterative.py`` builds it; b random but on the on-the-fly
+    system."""
+    from mlff_tpu_torch.parallel import mesh as pmesh
+    from mlff_tpu_torch.solvers import preconditioners as tpc
+
+    def psd(cache):
+        return lambda u: knl.matvec_psd(cache, u)
+
+    if system == "otf":
+        _, _, b, cache, P = _otf_system()
+        sh = pmesh.shard_cache(cache, mesh)
+        b = b.cuda()
+        return ((psd(sh), pmesh.shard_vector(b, mesh),
+                 pmesh.shard_preconditioner(P, mesh), knl.vector_layout(sh)),
+                (psd(cache), b, P), 1e-8)
+    if system == "square":
+        ds, _ = make_benchmark_dataset("catcher", n_samples=6, seed=11,
+                                       n_train=119)
+        spec, perms = dsc.make_spec(88), np.arange(88)[None]
+        R = torch.as_tensor(ds["R"], device="cuda")
+        X, Jc = dsc.descriptors_from_R(spec, R)
+        cache = knl.build_cache(X, Jc, dsc.incidence_matrix(spec,
+                                                            device="cuda"),
+                                dsc.desc_perms(perms), SIG, 1e-10, R=R,
+                                device="cuda")
+        sq = knl.build_cache_square(R, perms, SIG, 1e-10, device="cuda")
+        sq_sh = pmesh.shard_square_cache(sq, mesh)
+        matvecs = (lambda u: knl.matvec_psd_square(sq_sh, u),
+                   lambda u: knl.matvec_psd_square(sq, u))
+        k, apply_impl = 200, "xla"
+    else:
+        spec, cache, _ = _random_caches()
+        k, apply_impl = 40, "xla" if system == "cached" else "df64"
+    sh = pmesh.shard_cache(cache, mesh)
+    if system != "square":
+        matvecs = psd(sh), psd(cache)
+    idxs = np.sort(np.random.default_rng(3).choice(cache.n, k,
+                                                   replace=False))
+    b = torch.as_tensor(np.random.default_rng(4).normal(size=cache.n),
+                        device="cuda")
+    P_sh, P = (tpc.nystrom_preconditioner(spec, c, idxs, 1e-10,
+                                          apply_impl=apply_impl)
+               for c in (sh, cache))
+    return ((matvecs[0], pmesh.shard_vector(b, mesh), P_sh,
+             knl.vector_layout(sh)), (matvecs[1], b, P), 1e-4)
+
+
+@pytest.mark.parametrize("system", SHARDED_SYSTEMS)
+def test_one_rank_nccl_sharded_solve_is_graphed(card, nccl_mesh,
+                                                monkeypatch, system):
+    """A row-sharded solve on the card (one NCCL rank) is captured with its
+    collectives, on every operator a sharded training solves with
+    (``_sharded_system``): one capture and every iteration but the warm-up
+    replayed.  It gives the eager sharded solve's iterations and iterate
+    bit for bit, and its counts of collectives, fused matvecs and df64
+    kernels.  A recording of the solve keeps the ``matvec.otf``,
+    ``precon.apply`` and ``mesh.collective`` spans of the calls that ran
+    (the first residual's matvec and the warm-up) and none of the
+    capture's, whose replays open none.  It takes the unsharded graphed
+    solve's iterations within 2, and on the on-the-fly cache of
+    ``test_graphed_otf_solve_matches_the_plain_loop`` (lam = 1e-5) its
+    solution within 1e-10 relative."""
+    from mlff_tpu_torch.solvers import cg
+
+    (matvec, b_sh, P_sh, layout), (matvec_w, b, P), tol = _sharded_system(
+        system, nccl_mesh)
+    counters = ("mesh.collectives", knl.OTF_FUSED, BT_V, B_X,
+                cg.GRAPH_CAPTURES, cg.GRAPH_ITERS)
+
+    def solve():
+        before = [trace.counter(c) for c in counters]
+        with trace.recording() as rec:
+            res = cg.pcg(matvec, b_sh, precon=P_sh, layout=layout, tol=tol)
+        counted = {c: trace.counter(c) - n for c, n in zip(counters, before)}
+        spans = {name: len(rec.named(name))
+                 for name in ("matvec.otf", "precon.apply", "mesh.collective")}
+        steps = sum(s.attrs["steps"] for s in rec.named("cg.chunk"))
+        return res, counted, spans, steps
+
+    got, counted, spans, steps = solve()
+    assert got.converged and got.num_iters > 5
+    assert counted[cg.GRAPH_CAPTURES] == 1
+    assert counted[cg.GRAPH_ITERS] == got.num_iters - 1
+    with monkeypatch.context() as m:
+        _eager(m)
+        eager, eager_counted, eager_spans, eager_steps = solve()
+    assert (eager.num_iters, eager_steps) == (got.num_iters, steps)
+    assert np.array_equal(eager.x, got.x)
+    assert eager_counted == dict(counted, **{cg.GRAPH_CAPTURES: 0,
+                                             cg.GRAPH_ITERS: 0})
+    assert eager_spans["mesh.collective"] == counted["mesh.collectives"]
+    # every step queued runs its matvec and its apply, the masked ones past
+    # convergence too: the first residual's matvec, then one of each per
+    # step; the df64 apply opens no span
+    if system == "otf":
+        assert counted[knl.OTF_FUSED] == 1 + steps
+    if system == "df64":
+        assert counted[BT_V] == counted[B_X] == steps
+    # per step: its on-the-fly matvec, its f64 apply and five collectives
+    # (the all-gather of w, the apply's all-reduce, three dot products)
+    per_step = {"matvec.otf": int(system == "otf"),
+                "precon.apply": int(system != "df64"), "mesh.collective": 5}
+    for name, n in per_step.items():
+        assert spans[name] == eager_spans[name] - n * (steps - 1), name
+    assert spans["precon.apply"] == per_step["precon.apply"]
+    assert spans["matvec.otf"] == 2 * per_step["matvec.otf"]
+    want = cg.pcg(matvec_w, b, precon=P, tol=tol)
+    assert abs(got.num_iters - want.num_iters) <= 2
+    if system == "otf":
+        assert np.abs(got.x - want.x).max() <= 1e-10 * np.abs(want.x).max()
+
+
+def test_nccl_ranks_replay_the_sharded_solve_of_one_card(card):
+    """Two or four NCCL ranks, one card each (``tests/torch_dist_worker.py``,
+    scenario ``otf_pcg``): the graphed sharded PCG on an on-the-fly cache
+    captures once on every rank, replays every iteration but the warm-up,
+    and takes the one-card graphed solve's iterations within 2 and its
+    solution within 1e-10 relative (lam = 1e-5, N = 40: a CPU solve with
+    1e-15 relative noise on every matvec entry moves the solution 1e-13 to
+    5e-13; at N = 32 the same noise moves it ~1e-10, too near the limit to
+    tell the graph from rounding)."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two cards: NCCL refuses two ranks on one card")
+    from .torch_dist_worker import run_group
+
+    ds = make_dataset("ethanol", n_samples=40, seed=3)
+    b = np.asarray(ds["F"]).ravel()
+    ranks = run_group(4 if cards >= 4 else 2, [("otf_pcg", dict(
+        R=np.asarray(ds["R"]), perms=benchmark_perms("ethanol"),
+        b=b / np.linalg.norm(b), idxs=_otf_columns(b.size), sig=SIG))],
+        backend="nccl")
+    whole = ranks[0]["otf_pcg"]["whole"]
+    assert whole["converged"] and whole["iters"] > 5
+    assert (whole["captures"], whole["replayed"]) == (1, whole["iters"] - 1)
+    for rank in ranks:
+        got = rank["otf_pcg"]["sharded"]
+        assert rank["otf_pcg"]["backend"] == "nccl" and got["converged"]
+        assert (got["captures"], got["replayed"]) == (1, got["iters"] - 1)
+        assert abs(got["iters"] - whole["iters"]) <= 2
+        assert (np.abs(got["x"] - whole["x"]).max()
+                <= 1e-10 * np.abs(whole["x"]).max())

@@ -5,14 +5,17 @@
 start method) that join one gloo group through a file store, build the
 mesh, run each ``(name, kwargs)`` (or ``(key, name, kwargs)``) scenario of
 ``SCENARIOS`` in order and return every rank's results (NumPy arrays and
-plain values); ``start_groups`` starts several groups without waiting.  The module
-imports no JAX: the spawned processes re-import it, and the port must run
-without JAX.  Each rank takes one torch thread.
+plain values); ``start_groups`` starts several groups without waiting.
+``backend="nccl"`` joins an NCCL group instead, rank r on card r, for the
+card tests (``tests/test_torch_cuda.py``).  The module imports no JAX: the
+spawned processes re-import it, and the port must run without JAX.  Each
+rank takes one torch thread.
 """
 
 from __future__ import annotations
 
 import datetime
+import functools
 import os
 import pickle
 import shutil
@@ -30,12 +33,12 @@ class Groups:
 
         self.dir = tempfile.mkdtemp()
         self.ctxs = []
-        for g, spec in enumerate(groups):
-            world, scenarios, host_mesh = (tuple(spec) + (False,))[:3]
+        for g, (world, scenarios, *options) in enumerate(groups):
             out = os.path.join(self.dir, str(g))
             os.mkdir(out)
             self.ctxs.append((world, out, mp.start_processes(
-                _entry, args=(world, list(scenarios), out, host_mesh),
+                functools.partial(_entry, **(options[0] if options else {})),
+                args=(world, list(scenarios), out),
                 nprocs=world, start_method="spawn", join=False)))
 
     def results(self) -> list:
@@ -56,7 +59,8 @@ class Groups:
 
 def start_groups(groups) -> Groups:
     """Start several groups at once, without waiting: ``groups`` is a list
-    of ``(world, scenarios)`` or ``(world, scenarios, host_mesh)``."""
+    of ``(world, scenarios)`` or ``(world, scenarios, options)``, options a
+    dict of ``_entry``'s keywords (``host_mesh``, ``backend``)."""
     return Groups(groups)
 
 
@@ -65,23 +69,29 @@ def run_groups(groups) -> list:
     return start_groups(groups).results()
 
 
-def run_group(world: int, scenarios, host_mesh: bool = False) -> list:
-    """Every rank's results: a list (by rank) of {scenario name: result}."""
-    return run_groups([(world, scenarios, host_mesh)])[0]
+def run_group(world: int, scenarios, **options) -> list:
+    """Every rank's results: a list (by rank) of {scenario name: result};
+    ``options``: ``_entry``'s keywords."""
+    return run_groups([(world, scenarios, options)])[0]
 
 
-def _entry(rank, world, scenarios, outdir, host_mesh):
+def _entry(rank, world, scenarios, outdir, host_mesh=False, backend="gloo"):
+    """One rank: ``host_mesh`` builds ``make_host_mesh()`` (local groups of
+    world // 2 ranks) in place of the row mesh; ``backend="nccl"`` puts rank
+    r on card r."""
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
     os.environ["LOCAL_WORLD_SIZE"] = str(max(1, world // 2))
     from mlff_tpu_torch.parallel import distributed as pdist
     from mlff_tpu_torch.parallel import mesh as pmesh
 
     # a file store in the group's own directory: no rendezvous port that
     # another group or test process could take
-    pdist.init_distributed(backend="gloo",
+    pdist.init_distributed(backend=backend,
                            init_method="file://" + os.path.join(outdir,
                                                                 "store"),
                            world_size=world, rank=rank,
@@ -103,7 +113,7 @@ def _entry(rank, world, scenarios, outdir, host_mesh):
 # ---------------------------------------------------------------------------
 
 
-def _cache(R, sig, lam, perms=None, pairwise=True):
+def _cache(R, sig, lam, perms=None, pairwise=True, device="cpu"):
     import torch
 
     from mlff_tpu_torch.ops import descriptor as td
@@ -115,7 +125,7 @@ def _cache(R, sig, lam, perms=None, pairwise=True):
     perms = np.arange(R.shape[1])[None] if perms is None else perms
     cache = tk.build_cache(X, Jc, td.incidence_matrix(spec),
                            td.desc_perms(np.asarray(perms)), sig, lam,
-                           pairwise=pairwise, device="cpu")
+                           pairwise=pairwise, device=device)
     return spec, cache
 
 
@@ -465,6 +475,50 @@ def train_otf(mesh, task, **kw):
     return out
 
 
+def otf_pcg(mesh, R, perms, b, idxs, sig=10.0, lam=1e-5, tol=1e-8):
+    """PCG on a row-sharded on-the-fly cache on this rank's device (its
+    card under NCCL), with a Nystrom preconditioner built on the CPU's
+    whole cache and placed on the mesh: the iterations, the solution
+    gathered whole, and the captures and replayed iterations counted; on
+    rank 0 the same for the solve on the whole cache, on its one device."""
+    import dataclasses
+
+    import torch
+
+    from mlff_tpu_torch.ops import kernel as tk
+    from mlff_tpu_torch.parallel import mesh as pmesh
+    from mlff_tpu_torch.solvers import cg as tcg
+    from mlff_tpu_torch.solvers import preconditioners as tpc
+    from mlff_tpu_torch.utils import trace
+
+    dev = pmesh.row_shard(mesh).device
+    spec, cpu = _cache(R, sig, lam, perms, pairwise=False)
+    _, whole = _cache(R, sig, lam, perms, pairwise=False, device=dev)
+    P_cpu = tpc.nystrom_preconditioner(spec, cpu, np.asarray(idxs), lam)
+    P = dataclasses.replace(P_cpu, B=P_cpu.B.to(dev), W2=P_cpu.W2.to(dev))
+    b = torch.as_tensor(b, device=dev)
+
+    def solved(cache, P, b, layout=None):
+        before = (trace.counter(tcg.GRAPH_CAPTURES),
+                  trace.counter(tcg.GRAPH_ITERS))
+        res = tcg.pcg(lambda u: tk.matvec_psd(cache, u), b, precon=P,
+                      tol=tol, layout=layout)
+        return {"iters": res.num_iters, "converged": res.converged,
+                "x": res.x,
+                "captures": trace.counter(tcg.GRAPH_CAPTURES) - before[0],
+                "replayed": trace.counter(tcg.GRAPH_ITERS) - before[1]}
+
+    sh = pmesh.shard_cache(whole, mesh)
+    lay = tk.vector_layout(sh)
+    out = {"sharded": solved(sh, pmesh.shard_preconditioner(P, mesh),
+                             lay.scatter(b), lay),
+           "backend": sh.shard.backend}
+    if sh.shard.rank == 0:
+        out["whole"] = solved(whole, P, b)
+    return out
+
+
 SCENARIOS = {f.__name__: f for f in (operator, column_routes, uneven, precon,
                                      df64_build, square_matvec, train, predict, pcg,
-                                     ecstr_operator, otf_matvec, train_otf)}
+                                     ecstr_operator, otf_matvec, train_otf,
+                                     otf_pcg)}
